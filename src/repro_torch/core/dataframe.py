@@ -1,0 +1,228 @@
+"""Deferred DataFrame API over the explicit compilation stages::
+
+    ctx = FlareContext()                       # the CUDA device by default
+    ctx.register("lineitem", table)
+    df = ctx.table("lineitem").filter(
+        col("l_discount").between(E.param("lo"), E.param("hi")))
+    compiled = df.lower(engine="compiled", native=True).compile()
+    compiled(lo=0.05, hi=0.07)                 # prepared-query execution
+    compiled(lo=0.02, hi=0.04)                 # same template, new binding
+
+``df.collect(engine="compiled")`` runs lower + compile + execute in one
+step.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import engines as ENG
+from repro_torch.core import expr as E
+from repro_torch.core import optimizer as OPT
+from repro_torch.core import plan as P
+from repro_torch.core import stages as S
+from repro_torch.relational import table as T
+
+
+class FlareContext:
+    """Session object: catalog + device cache + compile cache, on one
+    device.  ``device="cuda"`` (the default) raises when no CUDA device
+    is available: the context never carries on on the CPU unless asked
+    to with ``device="cpu"``."""
+
+    def __init__(self, device: Union[str, torch.device] = "cuda",
+                 optimize: bool = True, join_reorder: bool = False):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "FlareContext(device='cuda'): no CUDA device is available; "
+                "pass device='cpu' to run the plain PyTorch path")
+        if device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {device}")
+        self.device = device
+        self.catalog = P.Catalog()
+        self.cache = ENG.DeviceCache(device)
+        self.compile_cache = S.CompileCache()
+        self.optimize = optimize
+        self.join_reorder = join_reorder
+
+    # -- catalog ---------------------------------------------------------------
+
+    def register(self, name: str, tbl: T.Table) -> None:
+        self.catalog.register(name, tbl)
+
+    def table(self, name: str) -> "DataFrame":
+        if name not in self.catalog:
+            raise KeyError(f"unknown table {name!r}")
+        return DataFrame(self, P.Scan(name))
+
+    def from_arrays(self, name: str, data, dtypes=None, domains=None,
+                    uniques=None) -> "DataFrame":
+        self.register(name, T.Table.from_arrays(data, dtypes, domains,
+                                                uniques))
+        return self.table(name)
+
+    # -- execution ---------------------------------------------------------------
+
+    def optimized(self, plan: P.Plan) -> P.Plan:
+        if not self.optimize:
+            return plan
+        return OPT.optimize(plan, self.catalog,
+                            join_reorder=self.join_reorder)
+
+    def lower(self, plan: P.Plan, engine: str = "compiled",
+              native: bool = False, join_index: bool = True) -> S.Lowered:
+        """Optimize + lower a plan (stages entry point)."""
+        return S.lower_plan(self.optimized(plan), self.catalog, self.cache,
+                            self.compile_cache, engine=engine,
+                            native=native, join_index=join_index)
+
+    def preload(self, *names: str, indexes: bool = True) -> None:
+        """Paper's ``persist()``: move table columns to the device up
+        front, and build the join index of every declared-unique integer
+        key column (loading is when indexing happens, paper section 4)."""
+        for name in names or self.catalog.names():
+            tbl = self.catalog.table(name)
+            for f in tbl.schema:
+                self.cache.get(tbl, f.name)
+                if indexes and f.unique and f.dtype in (
+                        T.INT32, T.INT64, T.DATE):
+                    try:
+                        self.cache.get_index(tbl, (f.name,))
+                    except ENG.UnindexableKeyError:
+                        pass  # int32-overflowing key: joins stay inline
+
+
+class DataFrame:
+    """A deferred query: context + logical plan (paper section 2.2)."""
+
+    def __init__(self, ctx: FlareContext, plan: P.Plan):
+        self.ctx = ctx
+        self.plan = plan
+
+    # -- transformations (all deferred) ------------------------------------------
+
+    def filter(self, pred: E.Expr) -> "DataFrame":
+        return DataFrame(self.ctx, P.Filter(self.plan, pred))
+
+    where = filter
+
+    def select(self, *exprs: Union[str, Tuple[str, E.Expr]]) -> "DataFrame":
+        outputs: List[Tuple[str, E.Expr]] = []
+        for item in exprs:
+            if isinstance(item, str):
+                outputs.append((item, E.col(item)))
+            elif isinstance(item, tuple):
+                outputs.append(item)
+            elif isinstance(item, E.Col):
+                outputs.append((item.name, item))
+            else:
+                raise TypeError("select() takes column names or "
+                                "expr.alias(name) tuples")
+        return DataFrame(self.ctx, P.Project(self.plan, tuple(outputs)))
+
+    def with_column(self, name: str, e: E.Expr) -> "DataFrame":
+        schema = self.plan.schema(self.ctx.catalog)
+        outputs = [(n, E.col(n)) for n in schema.names if n != name]
+        outputs.append((name, e))
+        return DataFrame(self.ctx, P.Project(self.plan, tuple(outputs)))
+
+    def join(self, other: "DataFrame", on: Union[str, Sequence[str]],
+             right_on: Union[str, Sequence[str], None] = None,
+             how: str = "inner", strategy: Optional[str] = None
+             ) -> "DataFrame":
+        left_on = (on,) if isinstance(on, str) else tuple(on)
+        if right_on is None:
+            r_on = left_on
+        else:
+            r_on = (right_on,) if isinstance(right_on, str) else tuple(right_on)
+        return DataFrame(self.ctx, P.Join(self.plan, other.plan,
+                                          left_on, r_on, how, strategy))
+
+    def group_by(self, *keys: str) -> "GroupedData":
+        return GroupedData(self, keys)
+
+    def agg(self, *specs: P.AggSpec) -> "DataFrame":
+        return DataFrame(self.ctx, P.Aggregate(self.plan, (), tuple(specs)))
+
+    def sort(self, *by: Union[str, Tuple[str, bool]]) -> "DataFrame":
+        norm = tuple((b, True) if isinstance(b, str) else b for b in by)
+        return DataFrame(self.ctx, P.Sort(self.plan, norm))
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self.ctx, P.Limit(self.plan, n))
+
+    # -- compilation stages ------------------------------------------------------
+
+    def lower(self, engine: str = "compiled", native: bool = False,
+              join_index: bool = True) -> S.Lowered:
+        """Optimize + lower this query.  ``native=True`` runs the kernel
+        dispatch pass (``lowered.dispatch_report()`` says what fired);
+        ``join_index=False`` makes every join sort its build side in the
+        program instead of probing the cached index."""
+        return self.ctx.lower(self.plan, engine, native=native,
+                              join_index=join_index)
+
+    def params(self) -> Tuple[E.Param, ...]:
+        """Param placeholders of this query (binding order)."""
+        return P.params_of(self.plan)
+
+    def collect(self, engine: str = "compiled",
+                params: Optional[Dict[str, Any]] = None,
+                native: bool = False) -> Dict[str, np.ndarray]:
+        """Lower, compile and run once; compacted host columns."""
+        return self.lower(engine, native=native).compile()(**(params or {}))
+
+    def count(self, engine: str = "compiled",
+              params: Optional[Dict[str, Any]] = None) -> int:
+        return self.lower(engine).compile().count(**(params or {}))
+
+    def explain(self, optimized: bool = True) -> str:
+        plan = self.ctx.optimized(self.plan) if optimized else self.plan
+        return "== Physical Plan ==\n" + plan.explain()
+
+    def schema(self) -> T.Schema:
+        return self.plan.schema(self.ctx.catalog)
+
+
+class GroupedData:
+    def __init__(self, df: DataFrame, keys: Tuple[str, ...]):
+        self.df = df
+        self.keys = keys
+
+    def agg(self, *specs: P.AggSpec) -> DataFrame:
+        return DataFrame(self.df.ctx,
+                         P.Aggregate(self.df.plan, self.keys, tuple(specs)))
+
+    def count(self, name: str = "count") -> DataFrame:
+        return self.agg(P.AggSpec(name, "count", None))
+
+
+# -- aggregate constructors ---------------------------------------------------
+
+
+def sum_(e: E.Expr, name: str = "sum") -> P.AggSpec:
+    return P.AggSpec(name, "sum", e)
+
+
+def avg(e: E.Expr, name: str = "avg") -> P.AggSpec:
+    return P.AggSpec(name, "avg", e)
+
+
+def min_(e: E.Expr, name: str = "min") -> P.AggSpec:
+    return P.AggSpec(name, "min", e)
+
+
+def max_(e: E.Expr, name: str = "max") -> P.AggSpec:
+    return P.AggSpec(name, "max", e)
+
+
+def count(name: str = "count") -> P.AggSpec:
+    return P.AggSpec(name, "count", None)
+
+
+def any_(e: E.Expr, name: str = "any") -> P.AggSpec:
+    """Carry a functionally-dependent column through a group-by."""
+    return P.AggSpec(name, "any", e)
