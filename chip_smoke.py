@@ -22,7 +22,23 @@ Phases, in order; any failure exits non-zero:
    ``compiled`` lowering, each kernel's launch count (reset just before,
    read just after), steady-state ms per query, one build per template;
    then one profiled run per query: device time, busy share, top kernels;
-5. goldens: q1, q6, q13 and q14 at SF 0.01 against ``tests/golden``.
+5. goldens: q1, q6, q13 and q14 at SF 0.01 against ``tests/golden``;
+6. the LM path's kernels against their plain versions, on the path's own
+   inputs: ``flash_attention`` on layer 0's q/k/v of the full-width
+   ``qwen3-0.6b`` forward (B 4 x S 4096, bf16, causal; also non-causal,
+   and S 4000, not a multiple of the tile), ``decode_attention`` on the
+   serving path's layer-0 cache after prefill (B 8, 2048 + 1 positions)
+   and at ``decode_32k``'s length (B 8, S 32 768, lengths from the seed);
+   each held to one bf16 rounding of its plain version's output, a limit
+   that must also reject faults planted on the same inputs; kernel,
+   plain and ``scaled_dot_product_attention`` times, the bound;
+7. the LM main path, weights from the seed on the card: ``Model.forward``
+   with ``attn_impl="pallas"`` at B 4 x S 4096 (28 flash launches per
+   forward) against ``attn_impl="blockwise"``, its steady-state ms and
+   ``Model.loss``; ``serve_llm.generate`` at B 8 x 2048 + 32 tokens
+   (prefill ms, decode ms, tokens/s); the prefill and decode logits
+   against a forward over prompt + completion; launch counts (reset just
+   before, read just after); one profiled forward and decode run.
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -30,6 +46,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -70,6 +87,8 @@ SCALE_CHANGES: dict = {}
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores
+
+H100_BF16_OPS_PER_S = 989e12  # bf16 tensor cores, dense (data sheet)
 
 SUM_RTOL = 1e-3      # kernel vs plain sums: summation order differs
 RESULT_RTOL = 5e-3   # query results, as tests/conftest.py compares them
@@ -459,6 +478,398 @@ def goldens(torch, FlareContext, Q) -> None:
         log(f"[golden] {q} ok")
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the LM path (qwen3-0.6b at full width)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-0.6b"
+#: the forward at train_4k's length; its batch of 256 is cut to 4 to fit
+#: one card (with the f32 logits of the loss)
+FWD_BATCH, FWD_LEN = 4, 4096
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 32
+#: decode_32k's cache length at B 8 (its batch of 128 cut to 8)
+DECODE32K = dict(b=8, hkv=8, group=2, s=32768, d=64)
+
+#: kernel vs plain on the path's bf16 inputs: both round an f32 result to
+#: bf16 once, so an element may differ by one rounding of the output, at
+#: most 2^-7 |want|; the floor, 1e-3 of the largest |want|, covers outputs
+#: near 0, where the two f32 sums' different order shows above that.
+OUT_ROUNDING, OUT_FLOOR = 2.0 ** -7, 1e-3
+#: logits of two bf16 paths: a few bf16 roundings that differ between
+#: the paths grow along 28 layers of residual stream, so single logits may
+#: differ by several ulps.  The budget is measured in the same run: the
+#: error of the reference bf16 forward (blockwise) against an f32 forward.
+#: Every bf16 comparison of the LM path must stay within this factor of
+#: that error (mean and max abs), plus a small slack for each:
+NOISE_FACTOR, NOISE_SLACK = 2.0, {"mean_abs_err": 1e-3,
+                                  "max_abs_err": 5e-2}
+
+
+class CaptureFirst(Capture):
+    """Capture that keeps a copy of the first call's tensor arguments."""
+
+    def __enter__(self):
+        def wrapper(*args, **kwargs):
+            if not self.calls:
+                self.calls.append(([a.clone() if hasattr(a, "clone") else a
+                                    for a in args], dict(kwargs)))
+            return self.orig(*args, **kwargs)
+        setattr(self.module, self.name, wrapper)
+        return self
+
+
+def rounding_excess(torch, got, want, what: str):
+    """Max abs error of an attention output ``got`` against ``want``, and
+    the largest ratio of an element's error to its limit, |d| <=
+    OUT_ROUNDING |want| + OUT_FLOOR max|want| (above 1: outside it)."""
+    check(tuple(got.shape) == tuple(want.shape),
+          f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    err = (g - w).abs()
+    limit = OUT_ROUNDING * w.abs() + OUT_FLOOR * float(w.abs().max())
+    return float(err.max()), float((err / limit).max())
+
+
+def close_err(torch, got, want, what: str) -> float:
+    """Max abs error of ``got`` against ``want``; fails outside the limit."""
+    err, excess = rounding_excess(torch, got, want, what)
+    check(excess <= 1.0, f"{what}: max abs err {err}, {excess:.3g} times "
+          f"the limit {OUT_ROUNDING} |want| + {OUT_FLOOR} max|want|")
+    return err
+
+
+def planted_faults(torch, want, faults: dict, what: str) -> dict:
+    """The limit must reject each planted fault (a wrong output) on the
+    path's own inputs; returns each fault's largest error/limit ratio."""
+    out = {}
+    for name, bad in faults.items():
+        _, out[name] = rounding_excess(torch, bad, want, f"{what} {name}")
+        check(out[name] > 1.0, f"{what}: the kernel check passes the "
+              f"planted fault '{name}' (error/limit {out[name]:.3g})")
+    log(f"[fault] {what} rejected, error/limit: {json.dumps(out)}")
+    return out
+
+
+def logit_err(torch, got, want, what: str, noise: dict = None) -> dict:
+    """Max and mean abs error of two logit tensors (one leading slice at
+    a time); checked against ``noise`` (the bf16 budget) when given."""
+    check(tuple(got.shape) == tuple(want.shape),
+          f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    worst, total = 0.0, 0.0
+    for g, w in zip(got, want):
+        g = g.float()
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite logits")
+        err = (g - w.float()).abs()
+        worst = max(worst, float(err.max()))
+        total += float(err.double().sum())
+    out = {"max_abs_err": worst, "mean_abs_err": total / max(got.numel(), 1)}
+    for key, got_err in (out.items() if noise else ()):
+        limit = NOISE_FACTOR * noise[key] + NOISE_SLACK[key]
+        check(got_err <= limit, f"{what}: {key} {got_err} beyond {limit} "
+              f"(the bf16 budget {noise})")
+    return out
+
+
+def attn_bound(byte_count: int, flops: float):
+    t_bytes = byte_count / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_BF16_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_record(torch, F, FL, q, k, v, causal: bool, label: str,
+                 faults: bool = False) -> dict:
+    got = FL.flash_attention(q, k, v, causal=causal)
+    want = FL.flash_attention_plain(q, k, v, causal=causal)
+    err = close_err(torch, got, want, label)
+    b, h, s, d = q.shape
+    if faults:
+        # wrong output scale, wrong softmax scale, the last K tile dropped
+        tail = FL.flash_attention_core_plain(
+            q.reshape(b * h, s, d), *[t[:, :, :s - 64].reshape(-1, s - 64, d)
+                                      for t in (k, v)], causal=False)
+        planted_faults(torch, want, {
+            "output x 0.9": got * 0.9,
+            "softmax scale x 0.9": FL.flash_attention(
+                q, k, v, causal=causal, scale=0.9 * d ** -0.5),
+            **({} if causal else
+               {"last K tile dropped": tail.reshape(q.shape)})}, label)
+        del tail
+    del want
+    pairs = s * (s + 1) // 2 if causal else s * s      # unmasked (q, k)
+    bnd, by = attn_bound(nbytes([q, k, v, got]), 4.0 * d * b * h * pairs)
+    rec = dict(
+        name=label, route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cuh",
+        replaces="src/repro/kernels/flash_attention/kernel.py:73",
+        shape=(f"B {b} x H {h} (Hkv {k.shape[1]}) x S {s} x D {d}, "
+               f"{str(q.dtype).split('.')[-1]}, "
+               f"{'causal' if causal else 'non-causal'}"),
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: FL.flash_attention(q, k, v,
+                                                     causal=causal)),
+        plain_ms=cuda_ms(torch, lambda: FL.flash_attention_plain(
+            q, k, v, causal=causal), runs=5, warmup=1),
+        bound_ms=bnd, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)))
+    log("[kernel] " + json.dumps(rec))
+    return rec
+
+
+def decode_record(torch, F, DA, q, k, v, lengths, label: str) -> dict:
+    got = DA.decode_attention(q, k, v, lengths)
+    want = DA.decode_attention_plain(q, k, v, lengths)
+    err = close_err(torch, got, want, label)
+    b, h, d = q.shape
+    planted_faults(torch, want, {
+        "output x 0.9": got * 0.9,
+        "softmax scale x 0.9": DA.decode_attention(
+            q, k, v, lengths, scale=0.9 * d ** -0.5),
+        "last 64 keys dropped": DA.decode_attention(
+            q, k, v, (lengths - 64).clamp_min(1)),
+        "length off by one": DA.decode_attention(
+            q, k, v, (lengths - 1).clamp_min(1))}, label)
+    del want
+    hkv, s = k.shape[1], k.shape[2]
+    n = lengths.clamp(0, s)
+    n = torch.where(n == 0, s, n)               # length 0 reads every row
+    rows = int(n.sum()) * hkv                   # cache rows the data needs
+    bnd, by = attn_bound(2 * rows * d * k.element_size()
+                         + nbytes([q, lengths, got]),
+                         4.0 * d * (h // hkv) * rows)
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    rec = dict(
+        name=label, route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cuh",
+        replaces="src/repro/kernels/decode_attention/kernel.py:65",
+        shape=(f"B {b} x H {h} (Hkv {hkv}) x S {s} x D {d}, "
+               f"{str(q.dtype).split('.')[-1]}, lengths "
+               f"{lengths.tolist()}"),
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: DA.decode_attention(q, k, v, lengths)),
+        plain_ms=cuda_ms(torch, lambda: DA.decode_attention_plain(
+            q, k, v, lengths), runs=5, warmup=1),
+        bound_ms=bnd, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k, v, attn_mask=mask, enable_gqa=True)))
+    log("[kernel] " + json.dumps(rec))
+    return rec
+
+
+def lm_inputs(torch, cfg, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (FWD_BATCH, FWD_LEN), generator=g,
+                           device="cuda")
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    return tokens, labels
+
+
+def lm_kernel_checks(torch, F, Model, serve_llm, FL, DA, cfg, params,
+                     tokens, seed: int) -> list:
+    """Phase 6: each attention kernel against its plain version on the
+    LM path's own inputs."""
+    records = []
+    with CaptureFirst(FL, "flash_attention") as cap:
+        Model(cfg).forward(params, {"tokens": tokens})
+    (q, k, v), _ = cap.calls[0]
+    check(tuple(q.shape) == (FWD_BATCH, cfg.n_heads, FWD_LEN, cfg.head_dim_)
+          and q.dtype == torch.bfloat16, f"flash input {tuple(q.shape)}")
+    records.append(flash_record(torch, F, FL, q, k, v, True,
+                                "flash_attention", faults=True))
+    records.append(flash_record(torch, F, FL, q, k, v, False,
+                                "flash_attention[non-causal]", faults=True))
+    s2 = FWD_LEN - 96                    # not a multiple of the 64-row tile
+    records.append(flash_record(
+        torch, F, FL, *[t[:, :, :s2].contiguous() for t in (q, k, v)],
+        True, f"flash_attention[S={s2}]"))
+    del q, k, v, cap
+
+    with CaptureFirst(DA, "decode_attention") as cap:
+        serve_llm.generate(LM_ARCH, reduced=False, batch=SERVE_BATCH,
+                           prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+                           params=params,
+                           attn_impl="pallas")
+    (q, k, v, lengths), _ = cap.calls[0]
+    check(tuple(k.shape) == (SERVE_BATCH, cfg.n_kv,
+                             SERVE_PROMPT + SERVE_GEN, cfg.head_dim_)
+          and bool((lengths == SERVE_PROMPT + 1).all()),
+          f"serving cache {tuple(k.shape)}, lengths {lengths.tolist()}")
+    records.append(decode_record(torch, F, DA, q, k, v, lengths,
+                                 "decode_attention"))
+    del q, k, v, cap
+
+    c = DECODE32K
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(c["b"], c["hkv"] * c["group"], c["d"], generator=g,
+                    device="cuda").bfloat16()
+    k = torch.randn(c["b"], c["hkv"], c["s"], c["d"], generator=g,
+                    device="cuda").bfloat16()
+    v = torch.randn(k.shape, generator=g, device="cuda").bfloat16()
+    lengths = torch.randint(1, c["s"] + 1, (c["b"],), generator=g,
+                            device="cuda", dtype=torch.int32)
+    records.append(decode_record(torch, F, DA, q, k, v, lengths,
+                                 "decode_attention[decode_32k]"))
+    torch.cuda.synchronize()
+    return records
+
+
+def lm_main_path(torch, Model, serve_llm, FL, DA, cfg, params, tokens,
+                 labels) -> dict:
+    """Phase 7: the LM path's entry points at full width, with the
+    kernels' launch counts reset just before and read just after."""
+    out = {}
+    FL.launches = DA.launches = 0
+    model = Model(cfg)
+    batch = {"tokens": tokens}
+
+    def forward():
+        before = FL.launches
+        logits, _ = model.forward(params, batch)
+        check(FL.launches - before == cfg.n_layers,
+              f"a forward launched flash_attention "
+              f"{FL.launches - before} times, not {cfg.n_layers}")
+        return logits
+
+    logits = forward()
+    check(tuple(logits.shape) == (FWD_BATCH, FWD_LEN, cfg.padded_vocab),
+          f"logits {tuple(logits.shape)}")
+    ref, _ = Model(dataclasses.replace(cfg, attn_impl="blockwise")
+                   ).forward(params, batch)
+    exact, _ = Model(dataclasses.replace(cfg, attn_impl="blockwise",
+                                         compute_dtype=torch.float32)
+                     ).forward(params, batch)
+    noise = logit_err(torch, ref, exact, "blockwise bf16 vs f32")
+    out["blockwise_vs_f32"] = noise
+    out["forward_vs_f32"] = logit_err(torch, logits, exact,
+                                      "forward pallas vs f32", noise)
+    del exact
+    out["forward_vs_blockwise"] = logit_err(
+        torch, logits, ref, "forward pallas vs blockwise", noise)
+    del logits, ref
+    out["forward_ms"] = host_ms(torch, forward, runs=5)
+    loss, metrics = model.loss(params, {"tokens": tokens, "labels": labels})
+    out["loss"] = float(loss)
+    check(math.isfinite(out["loss"]) and
+          abs(out["loss"] - math.log(cfg.vocab)) < 3.0,
+          f"loss {out['loss']} far from ln(vocab) {math.log(cfg.vocab)}")
+
+    kw = dict(reduced=False, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+              params=params, attn_impl="pallas")
+    serve_llm.generate(LM_ARCH, gen=2, **kw)           # warm-up
+    res = serve_llm.generate(LM_ARCH, gen=SERVE_GEN, return_logits=True,
+                             **kw)
+    st = res["stats"]
+    out.update(prefill_ms=st.prefill_s * 1e3, decode_ms=st.decode_s * 1e3,
+               decode_tokens_per_s=st.tokens_per_s)
+    prompts = torch.as_tensor(serve_llm.synthetic_prompts(
+        SERVE_BATCH, SERVE_PROMPT, cfg.vocab), device="cuda")
+    comp = torch.as_tensor(res["completions"], device="cuda")
+    seq = torch.cat([prompts, comp], dim=1)
+    full, _ = model.forward(params, {"tokens": seq})
+    out["prefill_vs_forward"] = logit_err(
+        torch, res["prefill_logits"], full[:, SERVE_PROMPT - 1],
+        "prefill vs forward", noise)
+    dec_want = full[:, SERVE_PROMPT:]
+    out["decode_vs_forward"] = logit_err(
+        torch, res["decode_logits"], dec_want, "decode vs forward", noise)
+    out["decode_argmax_agreement"] = float(
+        (res["decode_logits"].argmax(-1) == dec_want.argmax(-1))
+        .float().mean())
+    del full, dec_want, res
+    torch.cuda.synchronize()
+    out["launches"] = {"flash_attention": FL.launches,
+                       "decode_attention": DA.launches}
+    want_dec = cfg.n_layers * (2 + SERVE_GEN)
+    check(DA.launches == want_dec, f"decode_attention launched "
+          f"{DA.launches} times on the main path, not {want_dec}")
+    check(FL.launches > 0, "flash_attention was never launched")
+    log(f"[lm] {json.dumps(out)}")
+    return out
+
+
+def lm_profile(torch, Model, serve_llm, cfg, params, tokens) -> dict:
+    """Phase 7b: one profiled forward and four profiled decode steps:
+    device time, busy share and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import param as PM
+
+    model = Model(cfg)
+    prompts = torch.as_tensor(serve_llm.synthetic_prompts(
+        SERVE_BATCH, SERVE_PROMPT, cfg.vocab), device="cuda")
+    lp = PM.cast_compute(params, cfg.compute_dtype)
+    logits, caches = model.prefill(lp, {"tokens": prompts},
+                                   cache_len=SERVE_PROMPT + SERVE_GEN)
+    tok = logits.argmax(-1)
+    runs = {
+        "forward": lambda: model.forward(params, {"tokens": tokens}),
+        "decode x4": lambda: [model.decode_step(lp, tok, caches,
+                                                SERVE_PROMPT + i)
+                              for i in range(4)],
+    }
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if getattr(e, "device_type", None) is not None
+                   and "CUDA" in str(e.device_type)]
+        dev = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:6]
+        out[name] = {"wall_ms": wall, "device_ms": dev,
+                     "device_busy_share": dev / wall if wall else None,
+                     "top": [[e.key[:70], e.self_device_time_total / 1e3,
+                              e.count] for e in top]}
+        log(f"[profile] {json.dumps({'lm': name, **out[name]})}")
+    del caches
+    return out
+
+
+def lm_phases(torch, seed: int, launches_out: dict) -> list:
+    """Phases 6, 7 and 7b; returns the kernel records."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get
+    from repro_torch.kernels.decode_attention import kernel as DA
+    from repro_torch.kernels.flash_attention import kernel as FL
+    from repro_torch.launch import serve_llm
+    from repro_torch.models.modeling import Model
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls must run in full f32 (the plain versions' logits)")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get(LM_ARCH), attn_impl="pallas")
+    model = Model(cfg)
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    log(f"[lm] {LM_ARCH}: {model.n_params()} parameters from seed {seed}, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens, labels = lm_inputs(torch, cfg, seed)
+    records = lm_kernel_checks(torch, F, Model, serve_llm, FL, DA, cfg,
+                               params, tokens, seed)
+    torch.cuda.empty_cache()
+    main = lm_main_path(torch, Model, serve_llm, FL, DA, cfg, params,
+                        tokens, labels)
+    launches_out.update(main["launches"])
+    torch.cuda.empty_cache()
+    lm_profile(torch, Model, serve_llm, cfg, params, tokens)
+    log(f"[lm] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phases 6-7 "
+        f"took {time.perf_counter() - t0:.1f} s")
+    return records
+
+
 def run(sf: float, seed: int) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -467,19 +878,41 @@ def run(sf: float, seed: int) -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch.core import (FlareContext, any_, avg, col, count,
-                                      lit, sum_)
+        import repro_torch.launch.serve_llm  # noqa: F401
+        import repro_torch.relational.queries  # noqa: F401
         from repro_torch.kernels import cuda_build as CB
-        from repro_torch.kernels.filter_agg import kernel as FA
-        from repro_torch.kernels.join_probe import kernel as JP
-        from repro_torch.kernels.segmented_reduce import kernel as SR
-        from repro_torch.relational import queries as Q
     except ImportError as ex:
         print(f"chip_smoke: the repro_torch package is missing ({ex})",
               file=sys.stderr)
         return 1
     t_all = time.perf_counter()
     card = environment(torch, CB)
+    fixed = [CB.fixed_unit("flash_attention.cuh"),
+             CB.fixed_unit("decode_attention.cuh")]
+    records = tpch_phases(torch, sf, seed, fixed, t_all)
+    torch.cuda.empty_cache()
+    lm_launches: dict = {}
+    lm_records = lm_phases(torch, seed, lm_launches)
+    for r in lm_records:
+        r["launches"] = lm_launches[r["name"].split("[")[0]]
+    log(f"[summary] total {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": records + lm_records}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def tpch_phases(torch, sf: float, seed: int, fixed, t_all: float) -> list:
+    """Phases 2-5 (TPC-H); returns the kernel records."""
+    from repro_torch.core import (FlareContext, any_, avg, col, count, lit,
+                                  sum_)
+    from repro_torch.kernels import cuda_build as CB
+    from repro_torch.kernels.filter_agg import kernel as FA
+    from repro_torch.kernels.join_probe import kernel as JP
+    from repro_torch.kernels.segmented_reduce import kernel as SR
+    from repro_torch.relational import queries as Q
 
     t0 = time.perf_counter()
     ctx = FlareContext(device="cuda")
@@ -500,10 +933,11 @@ def run(sf: float, seed: int) -> int:
         sources.update(build(ctx).lower(native=True).kernel_sources())
     for name, build in Q.TEMPLATES.items():
         sources.update(build(ctx).lower(native=True).kernel_sources())
-    CB.build_all(sources)
+    CB.build_all(list(sources) + fixed)
     # q22's phase 1 (the scalar subquery) is a fragment of its own
     Q.q22_params(ctx, engine="compiled-native")
-    log(f"[build] {len(sources) + 1} kernel units of the suite, {CB.builds} "
+    log(f"[build] {len(sources) + 1 + len(fixed)} kernel units of the "
+        f"suite ({len(fixed)} attention units), {CB.builds} "
         f"nvcc builds, {time.perf_counter() - t0:.1f} s, into "
         f"{CB.BUILD_DIR}")
 
@@ -518,13 +952,8 @@ def run(sf: float, seed: int) -> int:
     goldens(torch, FlareContext, Q)
     log(f"[summary] per-query steady-state ms at SF {sf}: "
         f"{json.dumps(per_query)}")
-    log(f"[summary] total {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": records}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    log(f"[summary] TPC-H phases {time.perf_counter() - t_all:.1f} s")
+    return records
 
 
 def main() -> int:

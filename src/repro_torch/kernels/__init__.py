@@ -1,12 +1,18 @@
-"""Hand-written CUDA kernels for the native dispatch path (Hopper, sm_90a).
+"""Hand-written CUDA kernels of the port (Hopper, sm_90a).
 
-Each kernel package -- ``filter_agg``, ``segmented_reduce``, ``join_probe``
--- holds a wrapper that launches the CUDA kernel, the plain PyTorch version
-of the same function, and ``launches``, the count of kernel launches.  The
-kernel skeletons live in ``csrc/``; the per-fragment row function comes
-from the query (:class:`Body`, generated by
-``repro_torch.native.patterns.ExprCompiler``).  ``cuda_build`` compiles a
-skeleton together with its body with nvcc at first use.
+Each kernel package holds a wrapper that launches the CUDA kernel, the
+plain PyTorch version of the same function, and ``launches``, the count of
+kernel launches:
+
+* the native dispatch path (TPC-H): ``filter_agg``, ``segmented_reduce``,
+  ``join_probe``.  Their skeletons live in ``csrc/``; the per-fragment row
+  function comes from the query (:class:`Body`, generated by
+  ``repro_torch.native.patterns.ExprCompiler``), and ``cuda_build``
+  compiles a skeleton together with its body with nvcc at first use;
+* the LM path: ``flash_attention`` (full-sequence attention) and
+  ``decode_attention`` (one token over a KV cache).  Each is one fixed
+  source in ``csrc/`` (no generated body), built the same way
+  (``cuda_build.fixed_unit``).
 
 The device policy is :func:`on_card`, and it looks only at the tensor it
 is given: a CPU tensor takes the plain version, a CUDA tensor the kernel --

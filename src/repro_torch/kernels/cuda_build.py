@@ -7,6 +7,11 @@ takes seconds), named by a hash of its full text and the compiler flags,
 in ``build/kernels/`` at the root of the checkout.  A unit is built once;
 every later request, in this process or another, loads the cached
 library.  :func:`build_all` runs one nvcc per distinct unit concurrently.
+
+A fixed unit (:func:`fixed_unit`) is one csrc file on its own, with no
+generated body: the attention kernels.  It builds with the same flags;
+its inner products call ``fmaf`` by name, which ``--fmad=false`` leaves
+fused.
 """
 from __future__ import annotations
 
@@ -51,6 +56,11 @@ def unit_source(prologue: str, body_src: str, skeleton: str) -> str:
     return "\n".join([header("flare_common.cuh"), prologue,
                       header("flare_grouped.cuh"), body_src,
                       header(skeleton)])
+
+
+def fixed_unit(name: str) -> str:
+    """The full text of a fixed unit: ``csrc/<name>`` alone."""
+    return header(name)
 
 
 def nvcc_path() -> str:
@@ -140,6 +150,11 @@ def check_device(t: torch.Tensor) -> None:
         raise KernelBudgetError(
             f"the CUDA kernels are built for sm_90a (Hopper); device "
             f"{t.device} has compute capability {cap[0]}.{cap[1]}")
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of ``t``'s device."""
+    return _device_facts(t.device.index or 0)[1]
 
 
 def n_blocks(t: torch.Tensor, n: int, threads: int = 256,

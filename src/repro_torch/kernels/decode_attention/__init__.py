@@ -1,0 +1,1 @@
+"""Decode attention: the CUDA kernel's wrapper and its plain version."""

@@ -1,0 +1,1 @@
+"""Flash attention: the CUDA kernel's wrapper and its plain version."""

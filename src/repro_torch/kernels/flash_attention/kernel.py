@@ -1,0 +1,152 @@
+"""``flash_attention``: blocked online-softmax attention with native GQA.
+
+Replaces the Pallas kernel ``flash_attention`` of
+``src/repro/kernels/flash_attention/kernel.py`` (and its 4-D wrapper in
+``ops.py``).  The CUDA kernel (``csrc/flash_attention.cuh``) gives one
+thread block to each (query head, 64-row Q tile); the block walks the K/V
+tiles of its KV head (``h // group``: K and V are never repeated) through
+shared memory and keeps the running max, denominator and accumulator in
+f32 registers.  Any ``S`` is taken (the last tiles are masked), and under
+``causal`` the tiles above the diagonal are skipped, which is exact.  The
+TPU kernel's block sizes are not carried over.
+
+Bound on the H100: operations, ``4 * S^2 * D`` flops per query head (half
+under ``causal``) at the bf16 tensor-core rate; this first version runs
+the dots on the f32 CUDA cores (tensor cores are later work), so it sits
+well above that bound.  Its time, bound and plain time are in ``PERF.md``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import KernelBudgetError, on_card
+from repro_torch.kernels import cuda_build as CB
+
+#: Kernel launches by :func:`flash_attention_core`.
+launches = 0
+
+NEG_INF = -1e30
+
+#: The head widths the CUDA kernel takes.
+MIN_D, MAX_D = 16, 256
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def _check_shapes(q, k, v) -> None:
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise KernelBudgetError(
+            f"flash_attention: q [BH,S,D] and k/v [BHkv,S,D] expected, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    bh, s, d = q.shape
+    if k.shape[1:] != (s, d) or k.shape[0] == 0 or bh % k.shape[0]:
+        raise KernelBudgetError(
+            f"flash_attention: k/v {tuple(k.shape)} do not fit q "
+            f"{tuple(q.shape)} (BH must be a multiple of BHkv)")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise KernelBudgetError(
+            f"flash_attention: q/k/v must share a dtype in "
+            f"{sorted(map(str, _DTYPES))}, got {q.dtype}, {k.dtype}, "
+            f"{v.dtype}")
+
+
+def flash_attention_core_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool = True,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """The same function in plain PyTorch: q ``[BH,S,D]``, k/v
+    ``[BHkv,S,D]``; f32 logits, masked with -1e30, acc / max(l, 1e-30)."""
+    bh, s, d = q.shape
+    bhkv = k.shape[0]
+    group = bh // bhkv
+    if scale is None:
+        scale = d ** -0.5
+    qg = q.reshape(bhkv, group, s, d).float()
+    logits = torch.einsum("kgqd,ksd->kgqs", qg, k.float()) * scale
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, NEG_INF)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("kgqs,ksd->kgqd", p, v.float()) / l.clamp_min(1e-30)
+    return out.reshape(bh, s, d).to(q.dtype)
+
+
+def flash_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q ``[BH,S,D]``; k/v ``[BHkv,S,D]`` with BH % BHkv == 0 -> ``[BH,S,D]``
+    in q's dtype.  CPU tensors take the plain version."""
+    _check_shapes(q, k, v)
+    if not on_card(q):
+        return flash_attention_core_plain(q, k, v, causal=causal,
+                                          scale=scale)
+    global launches
+    bh, s, d = q.shape
+    if not MIN_D <= d <= MAX_D:
+        raise KernelBudgetError(f"flash_attention: head dim {d} outside "
+                                f"[{MIN_D}, {MAX_D}]")
+    if bh > 65535:
+        raise KernelBudgetError(f"flash_attention: {bh} query heads > 65535 "
+                                f"(the grid's y extent)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or not t.is_contiguous():
+            raise KernelBudgetError(f"flash_attention: {name} must be a "
+                                    f"contiguous tensor on {q.device}")
+    if scale is None:
+        scale = d ** -0.5
+    CB.check_device(q)
+    fn = CB.entry(CB.fixed_unit("flash_attention.cuh"),
+                  "flare_flash_attention", _ARGS)
+    out = torch.empty_like(q)
+    err = fn(CB.ptr(q), CB.ptr(k), CB.ptr(v), CB.ptr(out), bh, k.shape[0],
+             s, d, int(causal), float(scale), _DTYPES[q.dtype], CB.stream(q))
+    launches += 1
+    CB.raise_on(err, "flash_attention")
+    return out
+
+
+def _check_4d(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or q.shape[0] != k.shape[0]:
+        raise KernelBudgetError(
+            f"flash_attention: q [B,H,S,D] and k/v [B,Hkv,S,D] expected, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}")
+    if on_card(q):
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if not t.is_contiguous():
+                raise KernelBudgetError(f"flash_attention: {name} must be "
+                                        f"contiguous")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q ``[B,H,S,D]``; k/v ``[B,Hkv,S,D]`` -> ``[B,H,S,D]`` (the JAX
+    package's ``ops.flash_attention``)."""
+    _check_4d(q, k, v)
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    out = flash_attention_core(q.reshape(b * h, s, d),
+                               k.reshape(b * hkv, s, d),
+                               v.reshape(b * hkv, s, d), causal=causal,
+                               scale=scale)
+    return out.reshape(b, h, s, d)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The 4-D API's plain version, on any device."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    out = flash_attention_core_plain(q.reshape(b * h, s, d),
+                                     k.reshape(b * hkv, s, d),
+                                     v.reshape(b * hkv, s, d),
+                                     causal=causal, scale=scale)
+    return out.reshape(b, h, s, d)

@@ -1,0 +1,215 @@
+"""Decoder-only LM assembly, dense family.
+
+One parameter tree + entry points per model:
+
+* ``forward(cfg, params, batch, sc)``  -- full-sequence logits,
+* ``lm_loss(cfg, params, batch, sc)``  -- forward + masked CE (forward
+  only: no gradient is taken in the port yet),
+* ``prefill(cfg, params, batch, sc, cache_len)`` -- full-sequence forward
+  emitting per-layer caches + last-position logits,
+* ``decode_step(cfg, params, tokens, caches, length, sc)`` -- one token.
+
+The parameter tree is the JAX package's: per-layer leaves are stacked on
+a leading ``layers`` axis, and the layers run as a Python loop over that
+axis.  The JAX package's ``scan_layers`` and ``remat`` knobs shape its
+traced program and its backward pass; here the forward runs eagerly and
+takes no gradient, so they have no effect.  Other families (moe, ssm,
+hybrid, encdec) raise "not yet ported".
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.shardings import ShardingCtx
+from repro_torch.models import layers as L
+from repro_torch.models import param as PM
+from repro_torch.models.param import ArraySpec, tree_map
+
+F32 = torch.float32
+
+
+def require_dense(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not yet ported to "
+            f"repro_torch (dense only)")
+
+
+def stack_specs(tree, n: int):
+    return tree_map(
+        lambda s: ArraySpec((n,) + s.shape, s.dtype, ("layers",) + s.axes,
+                            s.init, s.scale), tree)
+
+
+def layer_params(stacked, i: int):
+    """Layer ``i``'s slice of a stacked tree (views, no copy)."""
+    return tree_map(lambda a: a[i], stacked)
+
+
+def _attn_cfg(cfg: ArchConfig, window: Optional[int] = None) -> L.AttnConfig:
+    return L.AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+        head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
+        qk_norm=cfg.qk_norm, causal=True, window=window,
+        impl=cfg.attn_impl)
+
+
+# ---------------------------------------------------------------------------
+# layer specs
+# ---------------------------------------------------------------------------
+
+
+def _layer_spec(cfg: ArchConfig) -> Dict:
+    require_dense(cfg)
+    dt = cfg.param_dtype
+    return {"ln1": L.rms_norm_spec(cfg.d_model),
+            "attn": L.attention_spec(_attn_cfg(cfg), dt),
+            "ln2": L.rms_norm_spec(cfg.d_model),
+            "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, dt)}
+
+
+def lm_spec(cfg: ArchConfig) -> Dict:
+    require_dense(cfg)
+    dt = cfg.param_dtype
+    return {
+        "embed": ArraySpec((cfg.padded_vocab, cfg.d_model), dt,
+                           ("vocab", "embed"), init="normal"),
+        "final_norm": L.rms_norm_spec(cfg.d_model),
+        "head": ArraySpec((cfg.d_model, cfg.padded_vocab), dt,
+                          ("embed", "vocab"), init="fan_in"),
+        "layers": stack_specs(_layer_spec(cfg), cfg.n_layers),
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward (scoring)
+# ---------------------------------------------------------------------------
+
+
+def _dense_block(cfg, p, x, positions, sc):
+    x = x + L.attention(p["attn"], _attn_cfg(cfg),
+                        L.rms_norm(p["ln1"], x), positions, sc)
+    x = x + L.mlp(p["mlp"], L.rms_norm(p["ln2"], x), cfg.act, sc)
+    x = sc.constrain(x, "batch", "seq", "act_embed")
+    return x, torch.zeros((), dtype=F32, device=x.device)
+
+
+def _embed_tokens(cfg, params, tokens, sc: ShardingCtx):
+    x = params["embed"][tokens].to(cfg.compute_dtype)
+    return sc.constrain(x, "batch", "seq", "act_embed")
+
+
+def _n_layers(params) -> int:
+    return PM.tree_items(params["layers"])[0][1].shape[0]
+
+
+def _head(cfg, params, x):
+    return torch.einsum("bsd,dv->bsv", x,
+                        params["head"].to(cfg.compute_dtype))
+
+
+def forward(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits [B,S_total,V] in the compute dtype, aux_loss)."""
+    require_dense(cfg)
+    params = PM.cast_compute(params, cfg.compute_dtype)
+    x = _embed_tokens(cfg, params, batch["tokens"], sc)
+    prefix = batch.get("prefix")          # vision stub: [B,P,d]
+    if prefix is not None:
+        x = torch.cat([prefix.to(cfg.compute_dtype), x], dim=1)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    aux_total = torch.zeros((), dtype=F32, device=x.device)
+    for i in range(_n_layers(params)):
+        x, a = _dense_block(cfg, layer_params(params["layers"], i), x,
+                            positions, sc)
+        aux_total = aux_total + a
+    x = L.rms_norm(params["final_norm"], x)
+    logits = sc.constrain(_head(cfg, params, x), "batch", "seq", "act_mlp")
+    return logits, aux_total
+
+
+def lm_loss(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx
+            ) -> Tuple[torch.Tensor, Dict]:
+    logits, aux = forward(cfg, params, batch, sc)
+    labels = batch["labels"]
+    prefix = batch.get("prefix")
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:]
+    logits = logits.float()
+    mask = (labels >= 0).to(F32)
+    safe = torch.clamp_min(labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    # the gold logit by gather: the same value as the reference's one-hot
+    # contraction (which it uses to keep a vocab-sharded axis local)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = nll.sum() / denom + 0.01 * aux
+    return loss, {"nll": nll.sum() / denom, "aux": aux,
+                  "tokens": mask.sum()}
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def cache_spec(cfg: ArchConfig, batch: int, cache_len: int) -> Dict:
+    require_dense(cfg)
+    one = L.attention_cache_spec(_attn_cfg(cfg), batch, cache_len,
+                                 cfg.compute_dtype)
+    return {"layers": stack_specs(one, cfg.n_layers)}
+
+
+def prefill(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx,
+            cache_len: int):
+    """Full-sequence prefill -> (last-token logits [B,V] f32, caches)."""
+    require_dense(cfg)
+    params = PM.cast_compute(params, cfg.compute_dtype)
+    x = _embed_tokens(cfg, params, batch["tokens"], sc)
+    prefix = batch.get("prefix")
+    if prefix is not None:
+        x = torch.cat([prefix.to(cfg.compute_dtype), x], dim=1)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    acfg = _attn_cfg(cfg)
+    ks, vs = [], []
+    for i in range(_n_layers(params)):
+        lp = layer_params(params["layers"], i)
+        a, cache = L.attention_prefill(lp["attn"], acfg,
+                                       L.rms_norm(lp["ln1"], x), positions,
+                                       sc, cache_len)
+        x = x + a
+        x = x + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], x), cfg.act, sc)
+        ks.append(cache["k"])
+        vs.append(cache["v"])
+    caches = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    x = L.rms_norm(params["final_norm"], x[:, -1:])
+    return _head(cfg, params, x)[:, 0].to(F32), caches
+
+
+def decode_step(cfg: ArchConfig, params, tokens: torch.Tensor,
+                caches: Dict, length, sc: ShardingCtx):
+    """tokens: [B] int; length: tokens already cached.  Returns
+    (logits [B,V] f32, caches) -- the caches updated in place."""
+    require_dense(cfg)
+    params = PM.cast_compute(params, cfg.compute_dtype)
+    x = params["embed"][tokens[:, None]].to(cfg.compute_dtype)
+    acfg = _attn_cfg(cfg)
+    kc, vc = caches["layers"]["k"], caches["layers"]["v"]
+    for i in range(_n_layers(params)):
+        lp = layer_params(params["layers"], i)
+        a, _ = L.attention_decode(lp["attn"], acfg,
+                                  L.rms_norm(lp["ln1"], x),
+                                  {"k": kc[i], "v": vc[i]}, length, sc)
+        x = x + a
+        x = x + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], x), cfg.act, sc)
+    x = L.rms_norm(params["final_norm"], x)
+    return _head(cfg, params, x)[:, 0].to(F32), caches
+

@@ -106,3 +106,111 @@ def test_expression_forms_match_generic_on_card(card_ctx):
         assert low.dispatch_report().fired_patterns() == EXPR_FIRED[name]
         assert_results_equal(df.lower().compile()(), low.compile()(),
                              rtol=1e-3, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the LM path's attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import KernelBudgetError  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as DA  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as FL  # noqa: E402
+
+#: kernel vs plain on the same inputs, per element |got - want| <= rel
+#: |want| + floor max|want|: bf16 outputs differ by one rounding of the
+#: f32 result (at most 2^-7 |want|), f32 ones by summation order; the
+#: floor covers outputs near 0, where the sums' order shows.
+ATTN_TOL = {torch.bfloat16: (2.0 ** -7, 1e-3), torch.float32: (1e-5, 1e-5)}
+
+
+def assert_within_rounding(got, want, dtype):
+    rel, floor = ATTN_TOL[dtype]
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    limit = rel * want.abs() + floor * float(want.abs().max())
+    assert bool((err <= limit).all()), \
+        f"max abs err {float(err.max())}, {float((err / limit).max())} " \
+        f"times the limit"
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available() or \
+            torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("needs an NVIDIA Hopper GPU (sm_90); the CUDA kernels "
+                    "are built for sm_90a only")
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,s,d", [
+    (1, 2, 1, 128, 64), (2, 4, 2, 200, 32), (1, 8, 2, 97, 128),
+    (2, 16, 8, 300, 64)])
+def test_flash_kernel_matches_plain(card, dtype, causal, b, h, hkv, s, d):
+    gen = torch.Generator(device=card).manual_seed(s * d + h)
+    q = _randn(gen, (b, h, s, d), dtype, card)
+    k = _randn(gen, (b, hkv, s, d), dtype, card)
+    v = _randn(gen, (b, hkv, s, d), dtype, card)
+    before = FL.launches
+    got = FL.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FL.launches == before + 1
+    want = FL.flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert_within_rounding(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,hkv,s,d", [
+    (4, 8, 2, 1000, 64), (3, 6, 3, 96, 32), (2, 16, 8, 2080, 64),
+    (1, 4, 4, 333, 128)])
+def test_decode_kernel_matches_plain(card, dtype, b, h, hkv, s, d):
+    gen = torch.Generator(device=card).manual_seed(s + d + h)
+    q = _randn(gen, (b, h, d), dtype, card)
+    k = _randn(gen, (b, hkv, s, d), dtype, card)
+    v = _randn(gen, (b, hkv, s, d), dtype, card)
+    lens = [0, 1, s, s // 2 + 1][:b]
+    lens += [7] * (b - len(lens))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+    before = DA.launches
+    got = DA.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert DA.launches == before + 1
+    want = DA.decode_attention_plain(q, k, v, lengths)
+    assert_within_rounding(got, want, dtype)
+    # length 0: the mean of V over the whole cache
+    mean = v[0].float().mean(1).repeat_interleave(h // hkv, 0)
+    assert_within_rounding(got[0], mean.to(dtype), dtype)
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(card):
+    q = torch.zeros(1, 2, 64, 8, device=card)
+    with pytest.raises(KernelBudgetError):
+        FL.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
+    q = torch.zeros(1, 2, 64, 32, device=card)
+    kt = torch.zeros(1, 1, 32, 64, device=card).transpose(2, 3)
+    with pytest.raises(KernelBudgetError):
+        FL.flash_attention(q, kt, kt)
+    with pytest.raises(KernelBudgetError):
+        FL.flash_attention(q.half(), q.half(), q.half())
+    lengths = torch.ones(1, dtype=torch.int32, device=card)
+    qd = torch.zeros(1, 2, 12, device=card)
+    kd = torch.zeros(1, 1, 64, 12, device=card)
+    with pytest.raises(KernelBudgetError):
+        DA.decode_attention(qd, kd, kd, lengths)
+    qd = torch.zeros(1, 2, 32, device=card)
+    kd = torch.zeros(1, 1, 32, 64, device=card).transpose(2, 3)
+    with pytest.raises(KernelBudgetError):
+        DA.decode_attention(qd, kd, kd, lengths)
+    kd = torch.zeros(1, 1, 64, 32, device=card)
+    with pytest.raises(KernelBudgetError):
+        DA.decode_attention(qd, kd, kd, lengths.long())
