@@ -38,7 +38,23 @@ Phases, in order; any failure exits non-zero:
    ``Model.loss``; ``serve_llm.generate`` at B 8 x 2048 + 32 tokens
    (prefill ms, decode ms, tokens/s); the prefill and decode logits
    against a forward over prompt + completion; launch counts (reset just
-   before, read just after); one profiled forward and decode run.
+   before, read just after); one profiled forward and decode run;
+8. the paper's Q6/Q1 engine ladder on the SF 10 context of phases 2-5
+   (run after phase 5, before the LM phases): q6 and q1 on ``volcano``
+   (once, numpy f64 on the host), ``stage`` (median of 5), ``compiled``
+   and ``compiled-native`` (phase 4) and the hand-written rows --
+   ``filter_agg_q6`` on the device cache's columns with the constants
+   of ``benchmarks/bench_q6.py``, two ``segmented_sum`` calls (G 6) for
+   q1's ``sum_qty`` and ``sum_base_price`` -- each equal to compiled,
+   with the compiled / hand-written ratio; launch counts of both kernels
+   (reset just before the ladder, read just after); the stage engine on
+   every query, template binding and q22 in two phases against compiled;
+   the tuple engine at SF 0.01 against the goldens and volcano; both
+   kernels against their plain versions (SF 10 columns, and G 512 codes
+   from the seed; bit for bit on dyadic inputs at ragged lengths and
+   unaligned views; G 513 and 700 launch nothing); the direct-from-CSV
+   row (lineitem at SF 0.1 through ``io.to_csv`` and
+   ``read_csv_compiled``, then compiled q6) against the preloaded q6.
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -92,6 +108,21 @@ H100_BF16_OPS_PER_S = 989e12  # bf16 tensor cores, dense (data sheet)
 
 SUM_RTOL = 1e-3      # kernel vs plain sums: summation order differs
 RESULT_RTOL = 5e-3   # query results, as tests/conftest.py compares them
+
+
+def days(iso: str) -> int:
+    """A date as the engine's DATE encoding: days since 1970-01-01."""
+    return int(np.datetime64(iso, "D").astype(np.int64))
+
+
+#: the hand-written Q6 row's constants (benchmarks/bench_q6.py:149-150)
+Q6_CONSTANTS = dict(date_lo=days("1994-01-01"), date_hi=days("1995-01-01"),
+                    disc_lo=0.05, disc_hi=0.07, qty_hi=24.0)
+#: Q1's shipdate cutoff, 1998-12-01 minus 90 days
+Q1_CUTOFF = days("1998-12-01") - 90
+#: lengths of the dyadic bit-for-bit checks: tails of 1-3 rows past the
+#: 16-byte loads, and one that spans every block of the grid
+RAGGED = (1, 3, 4097, 1_000_003)
 
 
 class SmokeFailure(RuntimeError):
@@ -374,8 +405,10 @@ def report_check(label: str, lowered) -> None:
 
 
 def main_path(torch, ctx, Q, FA, SR, JP, CB):
-    """Phase 4: every query and binding, native vs generic."""
-    per_query = {}
+    """Phase 4: every query and binding, native vs generic.  Returns the
+    native ms, the generic ms and the generic results (phase 8 reuses
+    them) and the launch counts."""
+    per_query, generic_ms, generic = {}, {}, {}
     for mod in (FA, SR, JP):
         mod.launches = 0
     builds_before = CB.builds
@@ -384,10 +417,12 @@ def main_path(torch, ctx, Q, FA, SR, JP, CB):
         report_check(name, lowered)
         compiled = lowered.compile()
         got = compiled()
-        want = build(ctx).lower(engine="compiled").compile()()
+        plain = build(ctx).lower(engine="compiled").compile()
+        want = generic[name] = plain()
         assert_close(got, want, name)
         ms = host_ms(torch, lambda: compiled.result())
         per_query[name] = ms
+        generic_ms[name] = host_ms(torch, lambda: plain.result())
         log(f"[query] {json.dumps({'query': name, 'ms': ms, 'rows': len(next(iter(got.values())))})}")
     q22_binding = Q.q22_params(ctx, engine="compiled-native")
     for tname, build in Q.TEMPLATES.items():
@@ -406,6 +441,7 @@ def main_path(torch, ctx, Q, FA, SR, JP, CB):
             native_compiles += not compiled.stats.cache_hit
             got = compiled(**b)
             want = build(ctx).lower(engine="compiled").compile()(**b)
+            generic[(tname, json.dumps(b, sort_keys=True))] = want
             assert_close(got, want, f"template {tname} {b}")
             times.append(host_ms(torch, lambda: compiled.result(**b)))
         rec = {"template": tname, "bindings": len(bindings),
@@ -428,7 +464,7 @@ def main_path(torch, ctx, Q, FA, SR, JP, CB):
           "phase 2 did not")
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the main path")
-    return per_query, launches
+    return per_query, generic_ms, generic, launches
 
 
 def device_breakdown(torch, ctx, Q) -> dict:
@@ -870,6 +906,325 @@ def lm_phases(torch, seed: int, launches_out: dict) -> list:
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the paper's Q6/Q1 engine ladder, on the SF 10 context
+# ---------------------------------------------------------------------------
+
+
+def wall_ms(fn):
+    """Result and wall ms of one run of ``fn`` (which ends on the host)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def q1_inputs(torch, ctx):
+    """The hand-written Q1 row's inputs, built in torch from the device
+    cache: group codes from the returnflag and linestatus dictionary codes
+    (G = 6, the compiled engine's group order) and the two value columns
+    with the rows past the cutoff zeroed."""
+    li = ctx.catalog.table("lineitem")
+    get = lambda n: ctx.cache.get(li, n)  # noqa: E731
+    n_ls = len(li.dictionary("l_linestatus"))
+    groups = len(li.dictionary("l_returnflag")) * n_ls
+    codes = get("l_returnflag") * n_ls + get("l_linestatus")
+    keep = get("l_shipdate") <= Q1_CUTOFF
+    qty = torch.where(keep, get("l_quantity"), 0.0)
+    price = torch.where(keep, get("l_extendedprice"), 0.0)
+    return codes, qty, price, groups
+
+
+def q6_columns(ctx):
+    li = ctx.catalog.table("lineitem")
+    return [ctx.cache.get(li, n) for n in ("l_quantity", "l_extendedprice",
+                                           "l_discount", "l_shipdate")]
+
+
+def ladder_q6(torch, ctx, Q, FQ, per_query, generic_ms, generic) -> dict:
+    want = float(generic["q6"]["revenue"][0])
+    volcano, v_ms = wall_ms(lambda: Q.q6(ctx).collect(engine="volcano"))
+    stage = Q.q6(ctx).lower(engine="stage").compile()
+    got_stage = stage()
+    cols = q6_columns(ctx)
+    hand = lambda: float(FQ.filter_agg_q6(*cols, **Q6_CONSTANTS))  # noqa
+    rows = {"volcano": v_ms,
+            "stage": host_ms(torch, lambda: stage.result()),
+            "compiled": generic_ms["q6"],
+            "compiled-native": per_query["q6"],
+            "hand-written": host_ms(torch, hand)}
+    for label, got in (("volcano", volcano["revenue"][0]),
+                       ("stage", got_stage["revenue"][0]),
+                       ("hand-written", hand())):
+        check(abs(float(got) - want) <= RESULT_RTOL * abs(want),
+              f"q6 {label} {float(got)} vs compiled {want}")
+    return rows
+
+
+def ladder_q1(torch, ctx, Q, SS, per_query, generic_ms, generic) -> dict:
+    want = generic["q1"]
+    volcano, v_ms = wall_ms(lambda: Q.q1(ctx).collect(engine="volcano"))
+    assert_close(volcano, want, "q1 volcano")
+    stage = Q.q1(ctx).lower(engine="stage").compile()
+    assert_close(stage(), want, "q1 stage")
+
+    def hand():
+        codes, qty, price, groups = q1_inputs(torch, ctx)
+        return (SS.segmented_sum(qty, codes, groups).cpu().numpy(),
+                SS.segmented_sum(price, codes, groups).cpu().numpy())
+
+    rows = {"volcano": v_ms,
+            "stage": host_ms(torch, lambda: stage.result()),
+            "compiled": generic_ms["q1"],
+            "compiled-native": per_query["q1"],
+            "hand-written": host_ms(torch, hand)}
+    sum_qty, sum_price = hand()
+    li = ctx.catalog.table("lineitem")
+    rf, ls = li.dictionary("l_returnflag"), li.dictionary("l_linestatus")
+    code = np.asarray([rf.index(a) * len(ls) + ls.index(b) for a, b in
+                       zip(want["l_returnflag"], want["l_linestatus"])])
+    for label, got, ref in (("sum_qty", sum_qty, want["sum_qty"]),
+                            ("sum_base_price", sum_price,
+                             want["sum_base_price"])):
+        ref = np.asarray(ref, np.float64)
+        check(bool(np.all(np.abs(got[code] - ref) <= RESULT_RTOL
+                          * np.abs(ref))),
+              f"q1 hand-written {label} {got[code]} vs compiled {ref}")
+        rest = np.setdiff1d(np.arange(len(got)), code)
+        check(bool(np.all(got[rest] == 0)), f"q1 hand-written {label}: "
+              "a group the compiled q1 does not emit is not 0")
+    return rows
+
+
+def stage_suite(torch, ctx, Q, generic) -> dict:
+    """The stage engine (the reference's default) on every query, every
+    template binding and q22 in two phases, against the compiled
+    lowering; returns the wall ms of each run."""
+    out = {}
+    for name, build in Q.QUERIES.items():
+        got, out[name] = wall_ms(
+            lambda: build(ctx).lower(engine="stage").compile()())
+        assert_close(got, generic[name], f"stage {name}")
+    for tname, build in Q.TEMPLATES.items():
+        for b in Q.TEMPLATE_BINDINGS[tname]:
+            key = (tname, json.dumps(b, sort_keys=True))
+            got, out[f"template:{tname} {key[1]}"] = wall_ms(
+                lambda: build(ctx).lower(engine="stage").compile()(**b))
+            assert_close(got, generic[key], f"stage template {tname} {b}")
+    binding = Q.q22_params(ctx, engine="stage")
+    native = Q.q22_params(ctx, engine="compiled-native")
+    check(abs(binding["acctbal_min"] - native["acctbal_min"])
+          <= RESULT_RTOL * abs(native["acctbal_min"]),
+          f"q22 phase 1 on stage {binding} vs native {native}")
+    got, out["q22 two-phase"] = wall_ms(
+        lambda: Q.q22(ctx).lower(engine="stage").compile()(**binding))
+    assert_close(got, Q.q22(ctx).lower(engine="compiled").compile()(
+        **binding), "stage q22 two-phase")
+    return out
+
+
+def tuple_goldens(torch, FlareContext, Q) -> dict:
+    """The row-at-a-time engine at the goldens' scale, SF 0.01 (60 M rows
+    one at a time would take hours): q1, q6, q14 against tests/golden and
+    against the port's volcano engine; returns the wall ms of each."""
+    ctx = FlareContext(device="cuda")
+    Q.register_tpch(ctx, sf=0.01, seed=0)
+    out = {}
+    for q in ("q1", "q6", "q14"):
+        with open(os.path.join(ROOT, "tests", "golden", f"{q}.json")) as f:
+            gold = json.load(f)
+        got, out[q] = wall_ms(lambda: Q.QUERIES[q](ctx).collect(
+            engine="tuple"))
+        oracle = Q.QUERIES[q](ctx).collect(engine="volcano")
+        for label, want in (("golden", gold["columns"]), ("volcano", oracle)):
+            for k, v in want.items():
+                a, b = np.asarray(got[k]), np.asarray(v)
+                if a.dtype == object or b.dtype.kind in "OUS":
+                    a, b = sorted(map(str, a)), sorted(map(str, b))
+                    check(a == b, f"tuple {q}/{k} vs {label}: strings")
+                    continue
+                a, b = np.sort(a.astype(np.float64)), np.sort(
+                    b.astype(np.float64))
+                check(a.shape == b.shape and bool(np.all(
+                    np.abs(a - b) <= RESULT_RTOL * np.abs(b) + 1e-6)),
+                    f"tuple {q}/{k} vs {label}")
+    return out
+
+
+def dyadic_checks(torch, FQ, SS, seed: int) -> None:
+    """Both kernels bit for bit against plain on inputs where every
+    summation order gives the same f32 sum (prices multiples of 1/4 below
+    1 times discounts 7/128, 8/128 or 1/8; values multiples of 1/4 in
+    [-8, 8)), at ragged lengths and through column views that start one
+    element in (pointers 4 bytes past a 16-byte boundary): a dropped tail
+    row or vector lane shows as a mismatch."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = max(RAGGED) + 1
+    qty = torch.randint(1, 50, (m,), generator=g, device="cuda").float()
+    price = torch.randint(0, 4, (m,), generator=g, device="cuda").float() / 4
+    disc = torch.tensor([7 / 128, 8 / 128, 1 / 8], device="cuda")[
+        torch.randint(0, 3, (m,), generator=g, device="cuda")]
+    date = torch.randint(Q6_CONSTANTS["date_lo"] - 60,
+                         Q6_CONSTANTS["date_hi"] + 60, (m,), generator=g,
+                         device="cuda", dtype=torch.int32)
+    values = torch.randint(-32, 32, (m,), generator=g,
+                           device="cuda").float() / 4
+    checked = 0
+    for n in RAGGED:
+        for off in (0, 1):
+            cols = [t[off:off + n] for t in (qty, price, disc, date)]
+            got = FQ.filter_agg_q6(*cols, **Q6_CONSTANTS)
+            want = FQ.filter_agg_q6_plain(*cols, **Q6_CONSTANTS)
+            check(torch.equal(got, want), f"filter_agg_q6 dyadic n={n} "
+                  f"offset {off}: {float(got)} vs {float(want)}")
+            for groups in (6, 512):
+                codes = torch.randint(-2, groups + 2, (n,), generator=g,
+                                      device="cuda", dtype=torch.int32)
+                c = torch.empty(n + off, dtype=torch.int32,
+                                device="cuda")[off:]
+                c.copy_(codes)
+                v = values[off:off + n]
+                got = SS.segmented_sum(v, c, groups)
+                want = SS.segmented_sum_plain(v, c, groups)
+                check(torch.equal(got, want), f"segmented_sum dyadic n={n} "
+                      f"G={groups} offset {off}: max abs err "
+                      f"{float((got - want).abs().max())}")
+                checked += 1
+    log(f"[ladder] dyadic bit-for-bit checks passed: {len(RAGGED) * 2} "
+        f"filter_agg_q6, {checked} segmented_sum (lengths {list(RAGGED)}, "
+        f"aligned and one element in)")
+
+
+def q6_record(torch, FQ, cols, launches: int) -> dict:
+    got = FQ.filter_agg_q6(*cols, **Q6_CONSTANTS)
+    want = FQ.filter_agg_q6_plain(*cols, **Q6_CONSTANTS)
+    err = compare(torch, got.reshape(1), want.reshape(1), "filter_agg_q6")
+    n = cols[0].numel()
+    # per row: five comparisons, four ands, a select, a product, an add
+    b, by = bound_ms(nbytes(list(cols) + [got]), 12 * n)
+    return dict(
+        name="filter_agg_q6", route="cuda",
+        source="src/repro_torch/kernels/csrc/filter_agg_q6.cuh",
+        replaces="src/repro/kernels/filter_agg/kernel.py:58",
+        shape=f"q6: {n} rows x 4 cols", launches=launches,
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: FQ.filter_agg_q6(*cols, **Q6_CONSTANTS)),
+        plain_ms=cuda_ms(torch, lambda: FQ.filter_agg_q6_plain(
+            *cols, **Q6_CONSTANTS)),
+        bound_ms=b, bound_by=by, library_ms=None)
+
+
+def segsum_record(torch, SS, values, codes, groups: int, label: str,
+                  launches: int) -> dict:
+    got = SS.segmented_sum(values, codes, groups)
+    want = SS.segmented_sum_plain(values, codes, groups)
+    err = compare(torch, got, want, label)
+    n = values.numel()
+    # per row: two range comparisons and one add
+    b, by = bound_ms(nbytes([values, codes, got]), 3 * n)
+    return dict(
+        name=label, route="cuda",
+        source="src/repro_torch/kernels/csrc/segmented_sum.cuh",
+        replaces="src/repro/kernels/segmented_reduce/kernel.py:73",
+        shape=f"{n} rows, G={groups}", launches=launches, max_abs_err=err,
+        ms=cuda_ms(torch, lambda: SS.segmented_sum(values, codes, groups)),
+        plain_ms=cuda_ms(torch, lambda: SS.segmented_sum_plain(
+            values, codes, groups), runs=5, warmup=1),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: torch.bincount(
+            codes, weights=values, minlength=groups)))
+
+
+def direct_csv(torch, FlareContext, Q, io) -> dict:
+    """The paper's "direct from CSV" row, on the host: lineitem at SF 0.1
+    written with ``io.to_csv``, then ``read_csv_compiled`` plus compiled
+    q6 against q6 over the preloaded table."""
+    pre = FlareContext(device="cuda")
+    Q.register_tpch(pre, sf=0.1, seed=0)
+    pre.preload("lineitem")
+    li = pre.catalog.table("lineitem")
+    path = os.path.join(ROOT, "build", "csv", "lineitem_sf0.1.csv")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    _, write_ms = wall_ms(lambda: io.to_csv(li, path))
+    try:
+        def direct():
+            ctx = FlareContext(device="cuda")
+            ctx.register("lineitem", io.read_csv_compiled(path, li.schema))
+            return Q.q6(ctx).lower(engine="compiled").compile()()
+        got, direct_ms = wall_ms(direct)
+    finally:
+        os.remove(path)
+    compiled = Q.q6(pre).lower(engine="compiled").compile()
+    want = compiled()
+    assert_close(got, want, "q6 direct from CSV")
+    return {"rows": li.num_rows, "to_csv_ms": write_ms,
+            "direct_csv_q6_ms": direct_ms,
+            "preloaded_q6_ms": host_ms(torch, lambda: compiled.result())}
+
+
+def engine_ladder(torch, ctx, Q, per_query, generic_ms, generic,
+                  seed: int) -> list:
+    """Phase 8; returns the kernel records of its two kernels."""
+    from repro_torch.core import FlareContext
+    from repro_torch.data import io
+    from repro_torch.kernels.filter_agg import ops as FQ
+    from repro_torch.kernels.segmented_reduce import ops as SS
+
+    t0 = time.perf_counter()
+    # the ladder drives both hand-written rows: launches counted from here
+    FQ.launches = SS.launches = 0
+    q6 = ladder_q6(torch, ctx, Q, FQ, per_query, generic_ms, generic)
+    q1 = ladder_q1(torch, ctx, Q, SS, per_query, generic_ms, generic)
+    torch.cuda.synchronize()
+    launches = {"filter_agg_q6": FQ.launches, "segmented_sum": SS.launches}
+    for k, v in launches.items():
+        check(v > 0, f"{k} was never launched on the engine ladder")
+    for q, rows in (("q6", q6), ("q1", q1)):
+        ratio = rows["compiled"] / rows["hand-written"]
+        log(f"[ladder] {json.dumps({'query': q, 'sf_rows': len(q6_columns(ctx)[0]), 'ms': rows, 'compiled_over_hand_written': ratio, 'native_over_hand_written': rows['compiled-native'] / rows['hand-written']})}")
+    log(f"[ladder] launches on the ladder: {json.dumps(launches)}")
+
+    suite = stage_suite(torch, ctx, Q, generic)
+    log(f"[ladder] stage engine, every query, binding and q22 two-phase "
+        f"equal to compiled; wall ms: {json.dumps(suite)}")
+    tup = tuple_goldens(torch, FlareContext, Q)
+    log(f"[ladder] tuple engine at SF 0.01 equals the goldens and volcano; "
+        f"wall ms: {json.dumps(tup)}")
+
+    # each kernel against its plain version (launches here do not count)
+    cols = q6_columns(ctx)
+    records = [q6_record(torch, FQ, cols, launches["filter_agg_q6"])]
+    codes, qty, _, groups = q1_inputs(torch, ctx)
+    check(groups == 6, f"q1 has {groups} groups")
+    records.append(segsum_record(torch, SS, qty, codes, groups,
+                                 "segmented_sum", launches["segmented_sum"]))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    price = cols[1]
+    codes512 = torch.randint(0, 512, price.shape, generator=g,
+                             device="cuda", dtype=torch.int32)
+    records.append(segsum_record(torch, SS, price, codes512, 512,
+                                 "segmented_sum[G512]",
+                                 launches["segmented_sum"]))
+    del codes, qty, codes512
+    dyadic_checks(torch, FQ, SS, seed)
+    before = SS.launches
+    for groups in (513, 700):
+        codes = torch.randint(0, groups, (4097,), generator=g, device="cuda",
+                              dtype=torch.int32)
+        vals = price[:4097]
+        got = SS.segmented_sum(vals, codes, groups)
+        check(torch.equal(got, SS.segmented_sum_plain(vals, codes, groups)),
+              f"segmented_sum G={groups} scatter route")
+    check(SS.launches == before, "segmented_sum launched its kernel above "
+          "MAX_GROUPS")
+    for r in records:
+        log("[kernel] " + json.dumps(r))
+
+    csv = direct_csv(torch, FlareContext, Q, io)
+    log(f"[ladder] direct from CSV: {json.dumps(csv)}")
+    log(f"[ladder] phase 8 took {time.perf_counter() - t0:.1f} s")
+    return records
+
+
 def run(sf: float, seed: int) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -887,8 +1242,11 @@ def run(sf: float, seed: int) -> int:
         return 1
     t_all = time.perf_counter()
     card = environment(torch, CB)
+    from repro_torch.kernels.filter_agg import ops as FQ
+    from repro_torch.kernels.segmented_reduce import ops as SS
     fixed = [CB.fixed_unit("flash_attention.cuh"),
-             CB.fixed_unit("decode_attention.cuh")]
+             CB.fixed_unit("decode_attention.cuh"),
+             FQ.unit_source(**Q6_CONSTANTS), SS.unit_source()]
     records = tpch_phases(torch, sf, seed, fixed, t_all)
     torch.cuda.empty_cache()
     lm_launches: dict = {}
@@ -937,22 +1295,27 @@ def tpch_phases(torch, sf: float, seed: int, fixed, t_all: float) -> list:
     # q22's phase 1 (the scalar subquery) is a fragment of its own
     Q.q22_params(ctx, engine="compiled-native")
     log(f"[build] {len(sources) + 1 + len(fixed)} kernel units of the "
-        f"suite ({len(fixed)} attention units), {CB.builds} "
+        f"suite ({len(fixed)} fixed units), {CB.builds} "
         f"nvcc builds, {time.perf_counter() - t0:.1f} s, into "
         f"{CB.BUILD_DIR}")
 
     records = kernel_checks(torch, ctx, Q, FA, SR, JP, col, sum_, avg,
                             count, any_, lit)
-    per_query, launches = main_path(torch, ctx, Q, FA, SR, JP, CB)
+    per_query, generic_ms, generic, launches = main_path(torch, ctx, Q, FA,
+                                                         SR, JP, CB)
     for r in records:
         r["launches"] = launches[r["name"].split("[")[0]]
     device_breakdown(torch, ctx, Q)
-    del ctx
-    torch.cuda.empty_cache()
     goldens(torch, FlareContext, Q)
     log(f"[summary] per-query steady-state ms at SF {sf}: "
         f"{json.dumps(per_query)}")
-    log(f"[summary] TPC-H phases {time.perf_counter() - t_all:.1f} s")
+    log(f"[summary] generic lowering, steady-state ms at SF {sf}: "
+        f"{json.dumps(generic_ms)}")
+    log(f"[summary] TPC-H phases 2-5 {time.perf_counter() - t_all:.1f} s")
+    records += engine_ladder(torch, ctx, Q, per_query, generic_ms, generic,
+                             seed)
+    del ctx
+    torch.cuda.empty_cache()
     return records
 
 

@@ -8,11 +8,13 @@
     compiled(lo=0.05, hi=0.07)                 # prepared-query execution
     compiled(lo=0.02, hi=0.04)                 # same template, new binding
 
-``df.collect(engine="compiled")`` runs lower + compile + execute in one
-step.
+``df.collect()`` runs lower + compile + execute in one step, on the
+``stage`` engine unless ``engine=`` names another (``compiled``,
+``volcano``, ``tuple``), as in the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -71,6 +73,20 @@ class FlareContext:
             return plan
         return OPT.optimize(plan, self.catalog,
                             join_reorder=self.join_reorder)
+
+    def execute(self, plan: P.Plan, engine: str,
+                stats: Optional[ENG.CompileStats] = None,
+                params: Optional[Dict[str, Any]] = None,
+                native: bool = False):
+        """Optimize, lower, compile and run ``plan`` once on ``engine``;
+        the padded :class:`repro_torch.core.lower.Result`.  ``stats``,
+        when given, receives the run's :class:`CompileStats`."""
+        compiled = self.lower(plan, engine, native=native).compile()
+        out = compiled.result(**(params or {}))
+        if stats is not None:
+            for f in dataclasses.fields(stats):
+                setattr(stats, f.name, getattr(compiled.stats, f.name))
+        return out
 
     def lower(self, plan: P.Plan, engine: str = "compiled",
               native: bool = False, join_index: bool = True) -> S.Lowered:
@@ -169,15 +185,17 @@ class DataFrame:
         """Param placeholders of this query (binding order)."""
         return P.params_of(self.plan)
 
-    def collect(self, engine: str = "compiled",
+    def collect(self, engine: str = "stage",
                 params: Optional[Dict[str, Any]] = None,
                 native: bool = False) -> Dict[str, np.ndarray]:
-        """Lower, compile and run once; compacted host columns."""
-        return self.lower(engine, native=native).compile()(**(params or {}))
+        """Lower, compile and run once; compacted host columns.
+        ``native=True`` applies to the ``compiled`` engine only."""
+        return self.ctx.execute(self.plan, engine, params=params,
+                                native=native).compact()
 
-    def count(self, engine: str = "compiled",
+    def count(self, engine: str = "stage",
               params: Optional[Dict[str, Any]] = None) -> int:
-        return self.lower(engine).compile().count(**(params or {}))
+        return self.ctx.execute(self.plan, engine, params=params).num_rows()
 
     def explain(self, optimized: bool = True) -> str:
         plan = self.ctx.optimized(self.plan) if optimized else self.plan
@@ -185,6 +203,10 @@ class DataFrame:
 
     def schema(self) -> T.Schema:
         return self.plan.schema(self.ctx.catalog)
+
+    def show(self, n: int = 20, engine: str = "stage",
+             params: Optional[Dict[str, Any]] = None) -> None:
+        print(format_rows(self.collect(engine, params=params), n))
 
 
 class GroupedData:
@@ -226,3 +248,21 @@ def count(name: str = "count") -> P.AggSpec:
 def any_(e: E.Expr, name: str = "any") -> P.AggSpec:
     """Carry a functionally-dependent column through a group-by."""
     return P.AggSpec(name, "any", e)
+
+
+def format_rows(cols: Dict[str, np.ndarray], n: int = 20) -> str:
+    """The first ``n`` rows of compacted columns as a text table."""
+    names = list(cols)
+    widths = {k: max(len(k), *(len(str(v)) for v in cols[k][:n]))
+              if len(cols[k]) else len(k) for k in names}
+    header = "|" + "|".join(k.rjust(widths[k]) for k in names) + "|"
+    sep = "+" + "+".join("-" * widths[k] for k in names) + "+"
+    lines = [sep, header, sep]
+    m = len(next(iter(cols.values()))) if names else 0
+    for i in range(min(n, m)):
+        lines.append("|" + "|".join(
+            str(cols[k][i]).rjust(widths[k]) for k in names) + "|")
+    lines.append(sep)
+    if m > n:
+        lines.append(f"only showing top {n} of {m} rows")
+    return "\n".join(lines)

@@ -1,4 +1,5 @@
-"""Device-resident columns, join indexes and compile telemetry.
+"""Device-resident columns, join indexes, and the interpreted and
+stage-granular engines.
 
 The whole-query ``compiled`` engine itself lives in
 ``repro_torch.core.stages``; this module holds what it binds at run time:
@@ -7,6 +8,19 @@ The whole-query ``compiled`` engine itself lives in
 sorted int32 keys of a base table's key columns, built once per table and
 key set -- the Flare lesson that the join's hash table belongs to the
 data, not to the query).
+
+It also holds the paper's comparison points, registered beside
+``compiled`` by ``repro_torch.core.stages``:
+
+``volcano`` -- operator-at-a-time numpy interpreter over compacted arrays,
+               in float64: the correctness oracle of every other engine;
+``stage``   -- stage-granular execution (the Spark/Tungsten analogue):
+               operator pipelines fuse into their parent pipeline breaker
+               (join, aggregate, sort, limit), each stage runs the generic
+               lowering on the device, and every stage output round-trips
+               through the host (paper section 3.1).
+
+The row-at-a-time ``tuple`` engine is ``repro_torch.core.tuple_engine``.
 """
 from __future__ import annotations
 
@@ -17,13 +31,37 @@ import numpy as np
 import torch
 
 from repro_torch.core import expr as E
+from repro_torch.core import lower as L
 from repro_torch.core import plan as P
 from repro_torch.core.lower import TORCH_OF
 from repro_torch.relational import table as T
 
+# Pipeline breakers.  MapBatches breaks on the stage engine by design:
+# Spark treats UDFs as black boxes and materialises around them (paper
+# section 5.1).
+_BREAKERS = (P.Join, P.Aggregate, P.Sort, P.Limit, P.MapBatches)
+
 
 _HOST_OF = {torch.int32: np.int32, torch.float32: np.float32,
             torch.bool: np.bool_}
+
+
+class NotYetPortedError(NotImplementedError):
+    """A plan node whose execution waits for a later slice of the port:
+    ``MapBatches`` and ``IterativeKernel`` (the heterogeneous pipelines,
+    ROADMAP Queue 1 item 5)."""
+
+
+def refuse_unported(p: P.Plan, engine: str) -> None:
+    """Raise :class:`NotYetPortedError` if ``p`` holds a plan node that
+    ``engine`` cannot run in the port yet."""
+    if isinstance(p, (P.MapBatches, P.IterativeKernel)):
+        raise NotYetPortedError(
+            f"the {engine} engine cannot run {type(p).__name__} plans yet: "
+            f"the heterogeneous pipelines are not yet ported to "
+            f"repro_torch (ROADMAP Queue 1 item 5)")
+    for c in p.children():
+        refuse_unported(c, engine)
 
 
 class UnindexableKeyError(ValueError):
@@ -198,3 +236,384 @@ def scan_map(p: P.Plan) -> Dict[int, str]:
 
     rec(p)
     return out
+
+
+# ---------------------------------------------------------------------------
+# stage-granular engine (Spark/Tungsten analogue)
+# ---------------------------------------------------------------------------
+
+
+class StageEngine:
+    """Pipelines fuse into their parent breaker; each breaker is a stage.
+
+    A stage runs the generic lowering (:func:`repro_torch.core.lower.
+    lower_node`) eagerly on the device cache's device.  Its output goes
+    to the host and back before the next stage reads it, modelling
+    Spark's exchange/iterator boundaries (paper section 3.1: 80% of Q6
+    time was spent in exactly this glue).  ``stages_run`` counts the
+    stages of the last execution.
+    """
+
+    def __init__(self):
+        self.stages_run = 0
+
+    def execute(self, p: P.Plan, catalog: P.Catalog, cache: DeviceCache,
+                params: Optional[Dict[str, Any]] = None) -> L.Result:
+        refuse_unported(p, "stage")
+        self.stages_run = 0
+        self._param_env = {
+            s.name: torch.tensor(require_param(params, s),
+                                 dtype=TORCH_OF[s.dtype], device=cache.device)
+            for s in P.params_of(p)}
+        cols, mask, info = self._run_stage(p, catalog, cache)
+        schema = p.schema(catalog)
+        dicts = {n: sc.dictionary for n, sc in info.cols.items()}
+        cols = {n: cols[n] for n in schema.names}
+        return L.Result(cols, mask, schema, dicts)
+
+    def _run_stage(self, root: P.Plan, catalog: P.Catalog,
+                   cache: DeviceCache):
+        """Execute the stage rooted at ``root``; returns host arrays."""
+        self.stages_run += 1
+        dev = cache.device
+        leaves: Dict[int, Tuple[str, Any]] = {}
+
+        def gather(n: P.Plan, is_root: bool):
+            if isinstance(n, P.Scan):
+                leaves[id(n)] = ("scan", n)
+                return
+            if isinstance(n, _BREAKERS) and not is_root:
+                leaves[id(n)] = ("mat", self._run_stage(n, catalog, cache))
+                return
+            for c in n.children():
+                gather(c, False)
+
+        gather(root, True)
+
+        needed = L.required_scan_columns(root, catalog)
+        scans: Dict[int, L.Stream] = {}
+        for lid, (kind, payload) in leaves.items():
+            if kind == "scan":
+                tbl = catalog.table(payload.table)
+                names = needed.get(lid) or tbl.schema.names[:1]
+                static = L._static_of_scan(tbl)
+                info = L.StaticInfo({n: static.cols[n] for n in names},
+                                    tbl.num_rows)
+                scans[lid] = L.Stream({n: cache.get(tbl, n) for n in names},
+                                      None, info, dev)
+            else:
+                # the host-to-device half of the round trip
+                mcols, mmask, minfo = payload
+                scans[lid] = L.Stream(
+                    {n: torch.from_numpy(v).to(dev) for n, v in mcols.items()},
+                    torch.from_numpy(mmask).to(dev), minfo, dev)
+        env = {s.name: self._param_env[s.name] for s in P.params_of(root)}
+        stream = L.lower_node(root, catalog, scans, env or None)
+        # device to host: the runtime-boundary overhead being modelled
+        out_cols = {k: L.as_column(v, stream).cpu().numpy()
+                    for k, v in stream.cols.items()}
+        return (out_cols, stream.the_mask().cpu().numpy(),
+                L.static_info(root, catalog))
+
+
+# ---------------------------------------------------------------------------
+# volcano engine (numpy oracle)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _VStream:
+    cols: Dict[str, np.ndarray]
+    dicts: Dict[str, Optional[Tuple[str, ...]]]
+    domains: Dict[str, Optional[int]]
+
+
+class VolcanoEngine:
+    """Operator-at-a-time interpreter over compacted numpy arrays.
+
+    Semantics deliberately mirror the compiled engine (left-join zero fill,
+    group-code output order, N:1 joins) so results are comparable
+    element-for-element.  Arithmetic runs in float64: this is the
+    high-precision oracle, and it runs on the host whatever the context's
+    device.
+    """
+
+    def execute(self, p: P.Plan, catalog: P.Catalog,
+                cache: Optional[DeviceCache] = None,
+                params: Optional[Dict[str, Any]] = None) -> L.Result:
+        refuse_unported(p, "volcano")
+        self._params = {
+            s.name: np.asarray(require_param(params, s),
+                               T.numpy_dtype(s.dtype))[()]
+            for s in P.params_of(p)}
+        vs = self._run(p, catalog)
+        schema = p.schema(catalog)
+        cols = {n: vs.cols[n] for n in schema.names}
+        return L.Result(cols, None, schema,
+                        {n: vs.dicts.get(n) for n in schema.names})
+
+    # -- operators -----------------------------------------------------------
+
+    def _run(self, p: P.Plan, catalog: P.Catalog) -> _VStream:
+        if isinstance(p, P.Scan):
+            tbl = catalog.table(p.table)
+            return _VStream(
+                {f.name: tbl[f.name] for f in tbl.schema},
+                {f.name: tbl.dictionary(f.name) for f in tbl.schema},
+                {f.name: f.domain for f in tbl.schema})
+        if isinstance(p, P.Filter):
+            c = self._run(p.child, catalog)
+            m = np.asarray(self._eval(p.pred, c), dtype=bool)
+            return _VStream({n: v[m] for n, v in c.cols.items()},
+                            c.dicts, c.domains)
+        if isinstance(p, P.Project):
+            c = self._run(p.child, catalog)
+            cols, dicts, doms = {}, {}, {}
+            for name, e in p.outputs:
+                cols[name] = np.asarray(self._eval(e, c))
+                dicts[name] = (c.dicts.get(e.name) if isinstance(e, E.Col)
+                               else None)
+                if isinstance(e, E.Col):
+                    doms[name] = c.domains.get(e.name)
+                elif isinstance(e, E.WithDomain):
+                    doms[name] = e.domain
+                    if isinstance(e.arg, E.Col):
+                        dicts[name] = c.dicts.get(e.arg.name)
+                else:
+                    doms[name] = None
+            return _VStream(cols, dicts, doms)
+        if isinstance(p, P.Join):
+            return self._join(p, catalog)
+        if isinstance(p, P.Aggregate):
+            return self._aggregate(p, catalog)
+        if isinstance(p, P.Sort):
+            c = self._run(p.child, catalog)
+            keys = []
+            for name, asc in reversed(p.by):
+                v = c.cols[name]
+                if not asc:
+                    v = -v.astype(np.float64) if v.dtype.kind in "fiu" else v
+                keys.append(v)
+            order = np.lexsort(tuple(keys)) if keys else np.arange(
+                len(next(iter(c.cols.values()))))
+            return _VStream({n: v[order] for n, v in c.cols.items()},
+                            c.dicts, c.domains)
+        if isinstance(p, P.Limit):
+            c = self._run(p.child, catalog)
+            return _VStream({n: v[: p.n] for n, v in c.cols.items()},
+                            c.dicts, c.domains)
+        raise TypeError(p)
+
+    def _join(self, p: P.Join, catalog: P.Catalog) -> _VStream:
+        left = self._run(p.left, catalog)
+        right = self._run(p.right, catalog)
+        doms = []
+        for lk, rk in zip(p.left_on, p.right_on):
+            dl = left.dicts.get(lk)
+            gl = len(dl) if dl is not None else left.domains.get(lk)
+            dr = right.dicts.get(rk)
+            gr = len(dr) if dr is not None else right.domains.get(rk)
+            doms.append(max(gl or 0, gr or 0) or (1 << 31))
+        kp = self._combine([left.cols[k] for k in p.left_on], doms)
+        kb = self._combine([right.cols[k] for k in p.right_on], doms)
+        perm = np.argsort(kb, kind="stable")
+        kb_s = kb[perm]
+        idx = np.searchsorted(kb_s, kp)
+        idx_c = np.clip(idx, 0, max(len(kb_s) - 1, 0))
+        if len(kb_s):
+            matched = kb_s[idx_c] == kp
+        else:
+            matched = np.zeros(len(kp), bool)
+        if p.how == "semi":
+            return _VStream({n: v[matched] for n, v in left.cols.items()},
+                            left.dicts, left.domains)
+        if p.how == "anti":
+            keep = ~matched
+            return _VStream({n: v[keep] for n, v in left.cols.items()},
+                            left.dicts, left.domains)
+        cols, dicts = dict(left.cols), dict(left.dicts)
+        domsout = dict(left.domains)
+        for name, v in right.cols.items():
+            if name in p.right_on:
+                continue
+            g = v[perm][idx_c] if len(kb_s) else np.zeros(len(kp), v.dtype)
+            if p.how == "left":
+                g = np.where(matched, g, np.zeros((), v.dtype))
+            cols[name] = g
+            dicts[name] = right.dicts.get(name)
+            domsout[name] = right.domains.get(name)
+        if p.how == "inner":
+            cols = {n: v[matched] for n, v in cols.items()}
+        return _VStream(cols, dicts, domsout)
+
+    @staticmethod
+    def _combine(keys, doms):
+        out = keys[0].astype(np.int64)
+        for k, d in zip(keys[1:], doms[1:]):
+            out = out * np.int64(d) + k.astype(np.int64)
+        return out
+
+    def _aggregate(self, p: P.Aggregate, catalog: P.Catalog) -> _VStream:
+        c = self._run(p.child, catalog)
+        n = len(next(iter(c.cols.values())))
+        if not p.keys:
+            cols = {}
+            for a in p.aggs:
+                raw = None if a.arg is None else np.asarray(
+                    self._eval(a.arg, c))
+                v = None if raw is None else raw.astype(np.float64)
+                cols[a.name] = np.asarray(
+                    [self._agg_all(a.op, v, n,
+                                   raw.dtype if raw is not None
+                                   else None)])
+            return _VStream(cols, {k: None for k in cols},
+                            {k: None for k in cols})
+        doms = []
+        for k in p.keys:
+            d = c.dicts.get(k)
+            doms.append(len(d) if d is not None else c.domains[k])
+        strides = []
+        acc = 1
+        for d in reversed(doms):
+            strides.append(acc)
+            acc *= d
+        strides.reverse()
+        code = np.zeros(n, np.int64)
+        for k, s in zip(p.keys, strides):
+            code += c.cols[k].astype(np.int64) * s
+        # sorted: matches the compiled engine's group-code order
+        groups, inv = np.unique(code, return_inverse=True)
+        g = len(groups)
+        cols, dicts, domsout = {}, {}, {}
+        for k, s, d in zip(p.keys, strides, doms):
+            cols[k] = ((groups // s) % d).astype(c.cols[k].dtype)
+            dicts[k] = c.dicts.get(k)
+            domsout[k] = c.domains.get(k)
+        cnt = np.bincount(inv, minlength=g)
+        for a in p.aggs:
+            if a.op == "count":
+                cols[a.name] = cnt.astype(np.int64)
+                continue
+            v = np.asarray(self._eval(a.arg, c))
+            vf = v.astype(np.float64)
+            if a.op == "sum":
+                cols[a.name] = np.bincount(inv, weights=vf, minlength=g)
+            elif a.op == "avg":
+                s_ = np.bincount(inv, weights=vf, minlength=g)
+                cols[a.name] = s_ / np.maximum(cnt, 1)
+            elif a.op in ("min", "max", "any"):
+                fill = np.inf if a.op == "min" else -np.inf
+                out = np.full(g, fill)
+                ufn = np.minimum if a.op == "min" else np.maximum
+                ufn.at(out, inv, vf)
+                cols[a.name] = out.astype(v.dtype) if a.op == "any" else out
+            if a.op == "any" and isinstance(a.arg, E.Col):
+                dicts[a.name] = c.dicts.get(a.arg.name)
+                domsout[a.name] = c.domains.get(a.arg.name)
+            else:
+                dicts[a.name] = None
+                domsout[a.name] = None
+        return _VStream(cols, dicts, domsout)
+
+    @staticmethod
+    def _agg_all(op, v, n, dtype=None):
+        # empty-input sentinels match the compiled engine's masked fills
+        # (f32 finfo.max / int32 iinfo.max, NOT inf)
+        def hi():
+            return (float(np.finfo(np.float32).max)
+                    if dtype is None or dtype.kind == "f"
+                    else float(np.iinfo(np.int32).max))
+
+        if op == "count":
+            return np.int64(n)
+        if op == "sum":
+            return v.sum() if len(v) else 0.0
+        if op == "avg":
+            return v.mean() if len(v) else 0.0
+        if op == "min":
+            return v.min() if len(v) else hi()
+        if op == "max":
+            return v.max() if len(v) else -hi()
+        raise ValueError(op)
+
+    # -- expressions over numpy ----------------------------------------------
+
+    def _eval(self, e: E.Expr, s: _VStream):
+        if isinstance(e, E.Col):
+            return s.cols[e.name]
+        if isinstance(e, E.Lit):
+            return e.value
+        if isinstance(e, E.Param):
+            return self._params[e.name]
+        if isinstance(e, E.BinOp):
+            l, r = self._eval(e.left, s), self._eval(e.right, s)
+            if e.op == "/":
+                return np.asarray(l, np.float64) / np.asarray(r, np.float64)
+            return {"+": np.add, "-": np.subtract,
+                    "*": np.multiply}[e.op](l, r)
+        if isinstance(e, E.Cmp):
+            ld = (s.dicts.get(e.left.name) if isinstance(e.left, E.Col)
+                  else None)
+            rd = (s.dicts.get(e.right.name) if isinstance(e.right, E.Col)
+                  else None)
+            if ld is not None and isinstance(e.right, E.Lit):
+                return self._cmp_code(e.op, s.cols[e.left.name], ld,
+                                      e.right.value)
+            if rd is not None and isinstance(e.left, E.Lit):
+                flipped = {"<": ">", ">": "<", "<=": ">=", ">=": "<=",
+                           "==": "==", "!=": "!="}[e.op]
+                return self._cmp_code(flipped, s.cols[e.right.name], rd,
+                                      e.left.value)
+            l, r = self._eval(e.left, s), self._eval(e.right, s)
+            return {"<": np.less, "<=": np.less_equal, ">": np.greater,
+                    ">=": np.greater_equal, "==": np.equal,
+                    "!=": np.not_equal}[e.op](l, r)
+        if isinstance(e, E.BoolOp):
+            vals = [np.asarray(self._eval(a, s), bool) for a in e.args]
+            out = vals[0]
+            for v in vals[1:]:
+                out = (out & v) if e.op == "and" else (out | v)
+            return out
+        if isinstance(e, E.Not):
+            return ~np.asarray(self._eval(e.arg, s), bool)
+        if isinstance(e, E.InSet):
+            d = s.dicts.get(e.arg.name) if isinstance(e.arg, E.Col) else None
+            v = self._eval(e.arg, s)
+            if d is not None:
+                codes = [d.index(x) for x in e.values if x in d]
+                return np.isin(v, codes)
+            return np.isin(v, e.values)
+        if isinstance(e, E.StrPred):
+            d = s.dicts[e.arg.name]
+            lut = np.asarray([E.match_str(e.kind, x, e.params) for x in d],
+                             bool)
+            return lut[self._eval(e.arg, s)]
+        if isinstance(e, E.IfThenElse):
+            return np.where(np.asarray(self._eval(e.cond, s), bool),
+                            self._eval(e.then, s), self._eval(e.other, s))
+        if isinstance(e, E.Cast):
+            return np.asarray(self._eval(e.arg, s)).astype(
+                T.numpy_dtype(e.dtype))
+        if isinstance(e, E.WithDomain):
+            return self._eval(e.arg, s)
+        if isinstance(e, E.Udf):
+            args = [np.asarray(self._eval(a, s)) for a in e.args]
+            return np.asarray(e.fn(*args))
+        raise TypeError(e)
+
+    @staticmethod
+    def _cmp_code(op, codes, dictionary, value):
+        try:
+            code = dictionary.index(value)
+        except ValueError:
+            if op == "==":
+                return np.zeros(codes.shape, bool)
+            if op == "!=":
+                return np.ones(codes.shape, bool)
+            code = int(np.searchsorted(np.asarray(dictionary, object), value))
+            if op in ("<", "<="):
+                return codes < code
+            return codes >= code
+        return {"<": np.less, "<=": np.less_equal, ">": np.greater,
+                ">=": np.greater_equal, "==": np.equal,
+                "!=": np.not_equal}[op](codes, code)

@@ -799,6 +799,8 @@ class Result:
             if d is not None:
                 lut = np.asarray(d, dtype=object)
                 out[f.name] = lut[arr]
+            elif f.dtype == T.STRING and arr.dtype == object:
+                out[f.name] = arr  # already-decoded strings (tuple engine)
             else:
                 out[f.name] = arr.astype(T.numpy_dtype(f.dtype))
         return out

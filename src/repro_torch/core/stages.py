@@ -15,6 +15,12 @@ runtime scalar of the kernels, never part of their source.
 PyTorch runs eagerly, so "compiling" a template means building its
 lowered function and, for native templates on a CUDA device, every
 kernel unit its fragments need (``repro_torch.kernels.cuda_build``).
+
+Besides ``compiled`` (and ``compiled-native``), the registry holds the
+paper's comparison points: ``stage`` (stage-granular execution with host
+round-trips between stages), ``volcano`` (the numpy f64 oracle) and
+``tuple`` (row-at-a-time).  ``native=True`` applies to ``compiled``
+only.
 """
 from __future__ import annotations
 
@@ -216,7 +222,136 @@ class WholeQueryEngine:
         return run
 
 
-ENGINES: Dict[str, WholeQueryEngine] = {"compiled": WholeQueryEngine()}
+# ---------------------------------------------------------------------------
+# stage-granular engine (Spark/Tungsten analogue)
+# ---------------------------------------------------------------------------
+
+
+def stage_decomposition(p: P.Plan) -> List[P.Plan]:
+    """Stage roots in bottom-up execution order (the Lowered IR of the
+    ``stage`` engine): every pipeline breaker below another stage root
+    starts its own stage, mirroring ``engines.StageEngine``."""
+    out: List[P.Plan] = []
+
+    def gather(root: P.Plan):
+        def rec(n: P.Plan, is_root: bool):
+            if isinstance(n, ENG._BREAKERS) and not is_root:
+                gather(n)
+                return
+            for c in n.children():
+                rec(c, False)
+
+        rec(root, True)
+        out.append(root)
+
+    gather(p)
+    return out
+
+
+@dataclasses.dataclass
+class _StageArtifact:
+    plan: P.Plan
+    stages: List[P.Plan]
+    param_specs: Tuple[E.Param, ...]
+
+
+class StagePipelineEngine:
+    """Stage-granular execution: one generic lowering per pipeline
+    breaker, run eagerly on the device, with a host round-trip between
+    stages -- the Spark-runtime behaviour the paper's Fig. 5/6 measures.
+    There is nothing to compile ahead (PyTorch runs eagerly): ``compile``
+    only wraps the engine."""
+
+    name = "stage"
+
+    def lower(self, p: P.Plan, catalog: P.Catalog,
+              param_specs: Tuple[E.Param, ...]) -> _StageArtifact:
+        return _StageArtifact(p, stage_decomposition(p), param_specs)
+
+    def compiler_ir(self, artifact: _StageArtifact,
+                    dialect: Optional[str] = None) -> Any:
+        if dialect in (None, "stages"):
+            return [s.explain() for s in artifact.stages]
+        raise ValueError(f"unknown dialect {dialect!r} for stage engine "
+                         "(use 'stages')")
+
+    def compile(self, artifact: _StageArtifact,
+                device: torch.device) -> Executor:
+        eng = ENG.StageEngine()
+
+        def run(catalog: P.Catalog, device_cache: ENG.DeviceCache,
+                params: Optional[Dict[str, Any]]) -> L.Result:
+            return eng.execute(artifact.plan, catalog, device_cache, params)
+
+        return run
+
+
+# ---------------------------------------------------------------------------
+# interpreted engines (volcano oracle + tuple-at-a-time baseline)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _InterpArtifact:
+    plan: P.Plan
+    param_specs: Tuple[E.Param, ...]
+
+
+class VolcanoStageEngine:
+    """Vectorised interpreter (the correctness oracle).  ``lower`` is the
+    identity on the optimized plan and ``compile`` wraps an interpreter
+    -- the stages API still applies, compile just measures ~0."""
+
+    name = "volcano"
+
+    def lower(self, p: P.Plan, catalog: P.Catalog,
+              param_specs: Tuple[E.Param, ...]) -> _InterpArtifact:
+        return _InterpArtifact(p, param_specs)
+
+    def compiler_ir(self, artifact: _InterpArtifact,
+                    dialect: Optional[str] = None) -> Any:
+        return artifact.plan.explain()
+
+    def compile(self, artifact: _InterpArtifact,
+                device: torch.device) -> Executor:
+        def run(catalog: P.Catalog, device_cache: ENG.DeviceCache,
+                params: Optional[Dict[str, Any]]) -> L.Result:
+            return ENG.VolcanoEngine().execute(artifact.plan, catalog,
+                                               None, params)
+
+        return run
+
+
+class TupleStageEngine:
+    """Row-at-a-time Volcano baseline.  Params are bound by plan rewrite
+    (Param -> Lit) per execution: with no compiled artifact there is
+    nothing to share, so substitution IS prepared-statement execution."""
+
+    name = "tuple"
+
+    def lower(self, p: P.Plan, catalog: P.Catalog,
+              param_specs: Tuple[E.Param, ...]) -> _InterpArtifact:
+        return _InterpArtifact(p, param_specs)
+
+    def compiler_ir(self, artifact: _InterpArtifact,
+                    dialect: Optional[str] = None) -> Any:
+        return artifact.plan.explain()
+
+    def compile(self, artifact: _InterpArtifact,
+                device: torch.device) -> Executor:
+        from repro_torch.core.tuple_engine import TupleEngine
+
+        def run(catalog: P.Catalog, device_cache: ENG.DeviceCache,
+                params: Optional[Dict[str, Any]]) -> L.Result:
+            p = artifact.plan
+            if artifact.param_specs:
+                p = bind_params(p, params)
+            return TupleEngine().execute(p, catalog)
+
+        return run
+
+
+ENGINES: Dict[str, Any] = {}
 
 
 def register_engine(engine) -> Any:
@@ -231,6 +366,11 @@ def get_engine(name: str):
     except KeyError:
         raise ValueError(f"unknown engine {name!r}; available: "
                          f"{sorted(ENGINES)}") from None
+
+
+for _cls in (WholeQueryEngine, StagePipelineEngine, VolcanoStageEngine,
+             TupleStageEngine):
+    register_engine(_cls())
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +398,7 @@ class Lowered:
         self._device_cache = device_cache
         self._compile_cache = compile_cache
         self._dispatch_report = dispatch_report
-        self._artifact: Optional[_WholeQueryArtifact] = None
+        self._artifact: Any = None
         self._lower_s = 0.0
 
     @property
@@ -290,7 +430,17 @@ class Lowered:
         """The kernel units this template's native fragments launch."""
         return kernel_sources(self._plan)
 
-    def _force(self) -> _WholeQueryArtifact:
+    def compiler_ir(self, dialect: Optional[str] = None) -> Any:
+        """Engine IR: the stage list (stage), plan text (interpreters).
+        The compiled engines have none: their generated code is
+        :meth:`kernel_sources`."""
+        ir = getattr(self._engine, "compiler_ir", None)
+        if ir is None:
+            raise ValueError(f"the {self._engine.name!r} engine has no "
+                             "compiler IR; see Lowered.kernel_sources()")
+        return ir(self._force(), dialect)
+
+    def _force(self) -> Any:
         if self._artifact is None:
             t0 = time.perf_counter()
             self._artifact = self._engine.lower(self._plan, self._catalog,
@@ -415,7 +565,7 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
                compile_cache: CompileCache,
                engine: str = "compiled", native: bool = False,
                join_index: bool = True) -> Lowered:
-    """Lower an (already optimized) plan for the whole-query engine.
+    """Lower an (already optimized) plan for ``engine``.
 
     ``native=True`` (or ``engine="compiled-native"``) first runs the
     :mod:`repro_torch.native` dispatch pass: fragments the kernel-pattern
@@ -430,13 +580,19 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
     dispatch_report = None
     if native and engine == "compiled":
         engine = "compiled-native"
+    elif native and engine != "compiled-native":
+        raise ValueError(f"native=True requires the 'compiled' engine, got "
+                         f"{engine!r}")
     if engine == "compiled-native":
         from repro_torch.native import dispatch as ND
         p, dispatch_report = ND.rewrite_plan(p, catalog, device_cache.device,
                                              join_index=join_index)
-    elif engine != "compiled":
-        raise ValueError(f"unknown engine {engine!r}; available: "
-                         "['compiled', 'compiled-native']")
+    eng = get_engine(engine)
+    if engine not in ("compiled", "compiled-native"):
+        # the stage and interpreted engines probe no cached join index
+        key = template_key(engine, p, catalog)
+        return Lowered(p, catalog, eng, P.params_of(p), key, device_cache,
+                       compile_cache)
     if join_index:
         index_specs, decisions = L.join_index_plan(p, catalog)
     else:
@@ -449,7 +605,6 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
             p = p.with_children(p.children())
             p._join_index_disabled = True
     dispatch_report = _add_index_decisions(dispatch_report, decisions)
-    eng = get_engine(engine)
     specs = P.params_of(p)
     key = template_key(engine, p, catalog, index_specs=index_specs)
     return Lowered(p, catalog, eng, specs, key, device_cache, compile_cache,

@@ -1,1 +1,2 @@
-"""LM data helpers (the byte tokenizer)."""
+"""Data helpers: the byte tokenizer (LM) and the table readers and
+writers (``io``: CSV, compiled CSV, flarecol)."""

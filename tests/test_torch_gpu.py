@@ -214,3 +214,118 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(card):
     kd = torch.zeros(1, 1, 64, 32, device=card)
     with pytest.raises(KernelBudgetError):
         DA.decode_attention(qd, kd, kd, lengths.long())
+
+
+# ---------------------------------------------------------------------------
+# the hand-written Q6 row and the single-value group sum
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.filter_agg import ops as FQ  # noqa: E402
+from repro_torch.kernels.segmented_reduce import ops as SS  # noqa: E402
+
+Q6_KW = dict(date_lo=8766, date_hi=9131, disc_lo=0.05, disc_hi=0.07,
+             qty_hi=24.0)
+#: ragged lengths (tails of 1-3 rows past the float4 loads) and one that
+#: spans many blocks
+RAGGED = [1, 3, 4097, 1_000_003]
+
+
+def dyadic_q6(n, dev, seed):
+    """Q6 columns on which every summation order gives the same f32 sum:
+    prices are multiples of 1/4 below 1, discounts 7/128 or 8/128 (both
+    qualify) or 1/8 (fails), so every product is a multiple of 2^-9 and
+    every partial sum stays far below 2^24 of those units."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qty = torch.randint(1, 50, (n + 1,), generator=g).float()
+    price = torch.randint(0, 4, (n + 1,), generator=g).float() / 4
+    disc = torch.tensor([7 / 128, 8 / 128, 1 / 8])[
+        torch.randint(0, 3, (n + 1,), generator=g)]
+    date = torch.randint(8700, 9200, (n + 1,), generator=g,
+                         dtype=torch.int32)
+    return [t.to(dev) for t in (qty, price, disc, date)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", RAGGED)
+def test_filter_agg_q6_is_exact_on_dyadic_inputs(card, n):
+    cols = dyadic_q6(n, card, n)
+    for offset in (0, 1):      # 1: every pointer 4 bytes past 16-byte
+        view = [c[offset:offset + n] for c in cols]
+        before = FQ.launches
+        got = FQ.filter_agg_q6(*view, **Q6_KW)
+        torch.cuda.synchronize()
+        assert FQ.launches == before + 1
+        want = FQ.filter_agg_q6_plain(*view, **Q6_KW)
+        assert got.shape == () and got.dtype == torch.float32
+        assert torch.equal(got, want), (n, offset, float(got), float(want))
+
+
+@pytest.mark.gpu
+def test_filter_agg_q6_matches_plain_at_q6_selectivity(card):
+    g = torch.Generator(device=card).manual_seed(6)
+    n = 3_000_001
+    qty = torch.randint(1, 51, (n,), generator=g, device=card).float()
+    price = torch.rand(n, generator=g, device=card) * 9000 + 900
+    disc = torch.randint(0, 11, (n,), generator=g, device=card).float() / 100
+    date = torch.randint(8000, 10600, (n,), generator=g, device=card,
+                         dtype=torch.int32)
+    got = FQ.filter_agg_q6(qty, price, disc, date, **Q6_KW)
+    want = FQ.filter_agg_q6_plain(qty, price, disc, date, **Q6_KW)
+    assert float(want) > 0
+    assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))
+
+
+def dyadic_codes(n, groups, dev, seed):
+    """Values that are multiples of 1/4 in [-8, 8) and codes in
+    [-2, G + 2): out-of-range codes must add nothing."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    values = (torch.randint(-32, 32, (n + 1,), generator=g).float() / 4)
+    codes = torch.randint(-2, groups + 2, (n + 1,), generator=g,
+                          dtype=torch.int32)
+    return values.to(dev), codes.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [1, 6, 48, 49, 512])
+@pytest.mark.parametrize("n", RAGGED)
+def test_segmented_sum_is_exact_on_dyadic_inputs(card, n, groups):
+    values, codes = dyadic_codes(n, groups, card, n + groups)
+    for offset in (0, 1):
+        v, c = values[offset:offset + n], codes[offset:offset + n]
+        before = SS.launches
+        got = SS.segmented_sum(v, c, groups)
+        torch.cuda.synchronize()
+        assert SS.launches == before + 1
+        want = SS.segmented_sum_plain(v, c, groups)
+        assert got.shape == (groups,) and got.dtype == torch.float32
+        assert torch.equal(got, want), (n, groups, offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [513, 700])
+def test_segmented_sum_above_max_groups_takes_the_scatter_path(card, groups):
+    values, codes = dyadic_codes(4097, groups, card, groups)
+    before = SS.launches
+    got = SS.segmented_sum(values, codes, groups)
+    assert SS.launches == before
+    assert torch.equal(got, SS.segmented_sum_plain(values, codes, groups))
+
+
+@pytest.mark.gpu
+def test_q6_and_group_sum_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x = torch.zeros(64, device=card)
+    d = torch.zeros(64, dtype=torch.int32, device=card)
+    with pytest.raises(KernelBudgetError):          # ragged lengths
+        FQ.filter_agg_q6(x, x[:63], x, d, **Q6_KW)
+    with pytest.raises(KernelBudgetError):          # strided view
+        FQ.filter_agg_q6(x[::2], x[::2], x[::2], d[::2], **Q6_KW)
+    with pytest.raises(KernelBudgetError):          # a column on the host
+        FQ.filter_agg_q6(x, x.cpu(), x, d, **Q6_KW)
+    with pytest.raises(KernelBudgetError):
+        FQ.filter_agg_q6(x, x, x, d, **{**Q6_KW, "date_hi": 2 ** 31})
+    with pytest.raises(KernelBudgetError):
+        SS.segmented_sum(x, d[:32], 6)
+    with pytest.raises(KernelBudgetError):
+        SS.segmented_sum(x[::2], d[::2], 6)
+    with pytest.raises(KernelBudgetError):
+        SS.segmented_sum(x, d.cpu(), 6)
