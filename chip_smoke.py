@@ -24,21 +24,28 @@ Phases, in order; any failure exits non-zero:
    then one profiled run per query: device time, busy share, top kernels;
 5. goldens: q1, q6, q13 and q14 at SF 0.01 against ``tests/golden``;
 6. the LM path's kernels against their plain versions, on the path's own
-   inputs: ``flash_attention`` on layer 0's q/k/v of the full-width
-   ``qwen3-0.6b`` forward (B 4 x S 4096, bf16, causal; also non-causal,
-   and S 4000, not a multiple of the tile), ``decode_attention`` on the
-   serving path's layer-0 cache after prefill (B 8, 2048 + 1 positions)
-   and at ``decode_32k``'s length (B 8, S 32 768, lengths from the seed);
-   each held to one bf16 rounding of its plain version's output, a limit
-   that must also reject faults planted on the same inputs; kernel,
-   plain and ``scaled_dot_product_attention`` times, the bound;
+   inputs, after a line with the tensor-core flash kernel's registers,
+   shared memory and spill bytes: ``flash_attention`` on layer 0's q/k/v
+   of the full-width ``qwen3-0.6b`` forward -- the tensor-core kernel
+   (B 4 x S 4096, bf16, causal; also non-causal, and S 4000, not a
+   multiple of the tile) and the CUDA-core kernel on the same inputs in
+   f32 --, ``decode_attention`` on the serving path's layer-0 cache after
+   prefill (B 8, 2048 + 1 positions) and at ``decode_32k``'s length (B 8,
+   S 32 768, lengths from the seed); each held to one rounding of its
+   plain version's output (bf16, or the f32 kernel tests' limit), a limit
+   that must also reject faults planted on the same inputs (among them
+   the KV heads rolled by one); kernel, plain and
+   ``scaled_dot_product_attention`` times, the bound;
 7. the LM main path, weights from the seed on the card: ``Model.forward``
-   with ``attn_impl="pallas"`` at B 4 x S 4096 (28 flash launches per
-   forward) against ``attn_impl="blockwise"``, its steady-state ms and
-   ``Model.loss``; ``serve_llm.generate`` at B 8 x 2048 + 32 tokens
-   (prefill ms, decode ms, tokens/s); the prefill and decode logits
-   against a forward over prompt + completion; launch counts (reset just
-   before, read just after); one profiled forward and decode run;
+   with ``attn_impl="pallas"`` at B 4 x S 4096 (28 tensor-core flash
+   launches per forward) against ``attn_impl="blockwise"``, its
+   steady-state ms and ``Model.loss``; the same forward in f32 (28
+   CUDA-core flash launches) against the f32 blockwise forward;
+   ``serve_llm.generate`` at B 8 x 2048 + 32 tokens (prefill ms, decode
+   ms, tokens/s; prefill takes the tensor-core kernel on every layer);
+   the prefill and decode logits against a forward over prompt +
+   completion; launch counts (reset just before, read just after); one
+   profiled forward and decode run;
 8. the paper's Q6/Q1 engine ladder on the SF 10 context of phases 2-5
    (run after phase 5, before the LM phases): q6 and q1 on ``volcano``
    (once, numpy f64 on the host), ``stage`` (median of 5), ``compiled``
@@ -531,6 +538,9 @@ DECODE32K = dict(b=8, hkv=8, group=2, s=32768, d=64)
 #: most 2^-7 |want|; the floor, 1e-3 of the largest |want|, covers outputs
 #: near 0, where the two f32 sums' different order shows above that.
 OUT_ROUNDING, OUT_FLOOR = 2.0 ** -7, 1e-3
+#: the same limit for f32 outputs (as ``ATTN_TOL`` in the card tests):
+#: the two f32 sums differ by their order only
+F32_ROUNDING, F32_FLOOR = 1e-5, 1e-5
 #: logits of two bf16 paths: a few bf16 roundings that differ between
 #: the paths grow along 28 layers of residual stream, so single logits may
 #: differ by several ulps.  The budget is measured in the same run: the
@@ -554,25 +564,35 @@ class CaptureFirst(Capture):
         return self
 
 
+def out_limit(torch, dtype):
+    """(rel, floor) of the kernel-vs-plain limit for outputs of ``dtype``."""
+    return ((F32_ROUNDING, F32_FLOOR) if dtype == torch.float32
+            else (OUT_ROUNDING, OUT_FLOOR))
+
+
 def rounding_excess(torch, got, want, what: str):
     """Max abs error of an attention output ``got`` against ``want``, and
-    the largest ratio of an element's error to its limit, |d| <=
-    OUT_ROUNDING |want| + OUT_FLOOR max|want| (above 1: outside it)."""
+    the largest ratio of an element's error to its limit, |d| <= rel
+    |want| + floor max|want| with :func:`out_limit` of want's dtype (above
+    1: outside it)."""
     check(tuple(got.shape) == tuple(want.shape),
           f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    rel, floor = out_limit(torch, want.dtype)
     g, w = got.float(), want.float()
     check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
     err = (g - w).abs()
-    limit = OUT_ROUNDING * w.abs() + OUT_FLOOR * float(w.abs().max())
+    limit = rel * w.abs() + floor * float(w.abs().max())
     return float(err.max()), float((err / limit).max())
 
 
-def close_err(torch, got, want, what: str) -> float:
-    """Max abs error of ``got`` against ``want``; fails outside the limit."""
+def close_err(torch, got, want, what: str):
+    """Max abs error of ``got`` against ``want``, and its largest
+    error/limit ratio; fails outside the limit."""
     err, excess = rounding_excess(torch, got, want, what)
+    rel, floor = out_limit(torch, want.dtype)
     check(excess <= 1.0, f"{what}: max abs err {err}, {excess:.3g} times "
-          f"the limit {OUT_ROUNDING} |want| + {OUT_FLOOR} max|want|")
-    return err
+          f"the limit {rel} |want| + {floor} max|want|")
+    return err, excess
 
 
 def planted_faults(torch, want, faults: dict, what: str) -> dict:
@@ -607,20 +627,56 @@ def logit_err(torch, got, want, what: str, noise: dict = None) -> dict:
     return out
 
 
-def attn_bound(byte_count: int, flops: float):
+def attn_bound(byte_count: int, flops: float,
+               ops_per_s: float = H100_BF16_OPS_PER_S):
     t_bytes = byte_count / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_BF16_OPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+#: the flash wrapper's two kernels, by ``FL.route``
+FLASH_SOURCES = {
+    "mma": "src/repro_torch/kernels/csrc/flash_attention_mma.cuh",
+    "cuda_cores": "src/repro_torch/kernels/csrc/flash_attention.cuh"}
+
+
+def bf16_p_excess(torch, FL, q, k, v, causal: bool, want) -> float:
+    """Error/limit of attention with P rounded to bf16 before P V (the
+    model's own rounding) against ``want`` (f32 P), in plain torch on the
+    same inputs: why the tensor-core kernel splits P into two bf16 parts."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b * hkv, h // hkv, s, d).float()
+    logits = torch.einsum("kgqd,ksd->kgqs", qg,
+                          k.reshape(b * hkv, s, d).float()) * d ** -0.5
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, FL.NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    del logits
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("kgqs,ksd->kgqd", p.bfloat16().float(),
+                       v.reshape(b * hkv, s, d).float()) / l
+    del p
+    return rounding_excess(torch, out.reshape(q.shape).to(q.dtype), want,
+                           "bf16 P")[1]
 
 
 def flash_record(torch, F, FL, q, k, v, causal: bool, label: str,
                  faults: bool = False) -> dict:
+    b, h, s, d = q.shape
+    kernel = FL.route(q.dtype, d)
+    check(label.split("[")[0] == f"flash_attention_{kernel}",
+          f"{label}: these inputs take the {kernel} kernel")
     got = FL.flash_attention(q, k, v, causal=causal)
     want = FL.flash_attention_plain(q, k, v, causal=causal)
-    err = close_err(torch, got, want, label)
-    b, h, s, d = q.shape
+    err, excess = close_err(torch, got, want, label)
+    extra = ({"bf16_p_err_over_limit": bf16_p_excess(torch, FL, q, k, v,
+                                                     causal, want)}
+             if kernel == "mma" else {})
     if faults:
-        # wrong output scale, wrong softmax scale, the last K tile dropped
+        # wrong output scale, wrong softmax scale, each query head on the
+        # wrong KV head, the last K tile dropped
         tail = FL.flash_attention_core_plain(
             q.reshape(b * h, s, d), *[t[:, :, :s - 64].reshape(-1, s - 64, d)
                                       for t in (k, v)], causal=False)
@@ -628,20 +684,23 @@ def flash_record(torch, F, FL, q, k, v, causal: bool, label: str,
             "output x 0.9": got * 0.9,
             "softmax scale x 0.9": FL.flash_attention(
                 q, k, v, causal=causal, scale=0.9 * d ** -0.5),
+            "KV heads rolled by one": FL.flash_attention_plain(
+                q, k.roll(1, dims=1), v.roll(1, dims=1), causal=causal),
             **({} if causal else
                {"last K tile dropped": tail.reshape(q.shape)})}, label)
         del tail
     del want
     pairs = s * (s + 1) // 2 if causal else s * s      # unmasked (q, k)
-    bnd, by = attn_bound(nbytes([q, k, v, got]), 4.0 * d * b * h * pairs)
+    bnd, by = attn_bound(nbytes([q, k, v, got]), 4.0 * d * b * h * pairs,
+                         H100_BF16_OPS_PER_S if kernel == "mma"
+                         else H100_F32_OPS_PER_S)
     rec = dict(
-        name=label, route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cuh",
+        name=label, route="cuda", source=FLASH_SOURCES[kernel],
         replaces="src/repro/kernels/flash_attention/kernel.py:73",
         shape=(f"B {b} x H {h} (Hkv {k.shape[1]}) x S {s} x D {d}, "
                f"{str(q.dtype).split('.')[-1]}, "
                f"{'causal' if causal else 'non-causal'}"),
-        max_abs_err=err,
+        max_abs_err=err, err_over_limit=excess, **extra,
         ms=cuda_ms(torch, lambda: FL.flash_attention(q, k, v,
                                                      causal=causal)),
         plain_ms=cuda_ms(torch, lambda: FL.flash_attention_plain(
@@ -656,7 +715,7 @@ def flash_record(torch, F, FL, q, k, v, causal: bool, label: str,
 def decode_record(torch, F, DA, q, k, v, lengths, label: str) -> dict:
     got = DA.decode_attention(q, k, v, lengths)
     want = DA.decode_attention_plain(q, k, v, lengths)
-    err = close_err(torch, got, want, label)
+    err, _ = close_err(torch, got, want, label)
     b, h, d = q.shape
     planted_faults(torch, want, {
         "output x 0.9": got * 0.9,
@@ -715,13 +774,18 @@ def lm_kernel_checks(torch, F, Model, serve_llm, FL, DA, cfg, params,
     check(tuple(q.shape) == (FWD_BATCH, cfg.n_heads, FWD_LEN, cfg.head_dim_)
           and q.dtype == torch.bfloat16, f"flash input {tuple(q.shape)}")
     records.append(flash_record(torch, F, FL, q, k, v, True,
-                                "flash_attention", faults=True))
+                                "flash_attention_mma", faults=True))
     records.append(flash_record(torch, F, FL, q, k, v, False,
-                                "flash_attention[non-causal]", faults=True))
+                                "flash_attention_mma[non-causal]",
+                                faults=True))
     s2 = FWD_LEN - 96                    # not a multiple of the 64-row tile
     records.append(flash_record(
         torch, F, FL, *[t[:, :, :s2].contiguous() for t in (q, k, v)],
-        True, f"flash_attention[S={s2}]"))
+        True, f"flash_attention_mma[S={s2}]"))
+    # the CUDA-core kernel, which the route keeps for f32 (and other D)
+    records.append(flash_record(
+        torch, F, FL, *[t.float() for t in (q, k, v)], True,
+        "flash_attention_cuda_cores[f32]", faults=True))
     del q, k, v, cap
 
     with CaptureFirst(DA, "decode_attention") as cap:
@@ -758,16 +822,19 @@ def lm_main_path(torch, Model, serve_llm, FL, DA, cfg, params, tokens,
     """Phase 7: the LM path's entry points at full width, with the
     kernels' launch counts reset just before and read just after."""
     out = {}
-    FL.launches = DA.launches = 0
+    FL.launches = FL.launches_mma = FL.launches_cuda_cores = 0
+    DA.launches = 0
     model = Model(cfg)
     batch = {"tokens": tokens}
 
-    def forward():
-        before = FL.launches
-        logits, _ = model.forward(params, batch)
-        check(FL.launches - before == cfg.n_layers,
-              f"a forward launched flash_attention "
-              f"{FL.launches - before} times, not {cfg.n_layers}")
+    def forward(m=model, kernel="mma"):
+        before = (FL.launches_mma, FL.launches_cuda_cores)
+        logits, _ = m.forward(params, batch)
+        made = {"mma": FL.launches_mma - before[0],
+                "cuda_cores": FL.launches_cuda_cores - before[1]}
+        want = {k: cfg.n_layers if k == kernel else 0 for k in made}
+        check(made == want, f"a forward launched the flash kernels "
+              f"{made} times, not {want}")
         return logits
 
     logits = forward()
@@ -782,10 +849,15 @@ def lm_main_path(torch, Model, serve_llm, FL, DA, cfg, params, tokens,
     out["blockwise_vs_f32"] = noise
     out["forward_vs_f32"] = logit_err(torch, logits, exact,
                                       "forward pallas vs f32", noise)
-    del exact
     out["forward_vs_blockwise"] = logit_err(
         torch, logits, ref, "forward pallas vs blockwise", noise)
     del logits, ref
+    # scoring in f32: the route sends f32 to the CUDA-core kernel
+    f32_model = Model(dataclasses.replace(cfg, compute_dtype=torch.float32))
+    out["forward_f32_vs_f32_blockwise"] = logit_err(
+        torch, forward(f32_model, "cuda_cores"), exact,
+        "forward pallas f32 vs f32 blockwise", noise)
+    del exact
     out["forward_ms"] = host_ms(torch, forward, runs=5)
     loss, metrics = model.loss(params, {"tokens": tokens, "labels": labels})
     out["loss"] = float(loss)
@@ -796,8 +868,12 @@ def lm_main_path(torch, Model, serve_llm, FL, DA, cfg, params, tokens,
     kw = dict(reduced=False, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
               params=params, attn_impl="pallas")
     serve_llm.generate(LM_ARCH, gen=2, **kw)           # warm-up
+    before = FL.launches_mma
     res = serve_llm.generate(LM_ARCH, gen=SERVE_GEN, return_logits=True,
                              **kw)
+    check(FL.launches_mma - before == cfg.n_layers,
+          f"prefill launched the tensor-core flash kernel "
+          f"{FL.launches_mma - before} times, not {cfg.n_layers}")
     st = res["stats"]
     out.update(prefill_ms=st.prefill_s * 1e3, decode_ms=st.decode_s * 1e3,
                decode_tokens_per_s=st.tokens_per_s)
@@ -817,12 +893,16 @@ def lm_main_path(torch, Model, serve_llm, FL, DA, cfg, params, tokens,
         .float().mean())
     del full, dec_want, res
     torch.cuda.synchronize()
-    out["launches"] = {"flash_attention": FL.launches,
+    out["launches"] = {"flash_attention_mma": FL.launches_mma,
+                       "flash_attention_cuda_cores": FL.launches_cuda_cores,
                        "decode_attention": DA.launches}
     want_dec = cfg.n_layers * (2 + SERVE_GEN)
     check(DA.launches == want_dec, f"decode_attention launched "
           f"{DA.launches} times on the main path, not {want_dec}")
-    check(FL.launches > 0, "flash_attention was never launched")
+    check(FL.launches == FL.launches_mma + FL.launches_cuda_cores,
+          "flash_attention's launch counts do not add up")
+    for k, n in out["launches"].items():
+        check(n > 0, f"{k} was never launched on the main path")
     log(f"[lm] {json.dumps(out)}")
     return out
 
@@ -892,6 +972,9 @@ def lm_phases(torch, seed: int, launches_out: dict) -> list:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
         f"{time.perf_counter() - t0:.1f} s")
     tokens, labels = lm_inputs(torch, cfg, seed)
+    log(f"[lm] flash_attention_mma resources by head width (registers and "
+        f"local spill bytes per thread, shared bytes per block): "
+        f"{json.dumps(FL.mma_resources())}")
     records = lm_kernel_checks(torch, F, Model, serve_llm, FL, DA, cfg,
                                params, tokens, seed)
     torch.cuda.empty_cache()
@@ -1245,6 +1328,7 @@ def run(sf: float, seed: int) -> int:
     from repro_torch.kernels.filter_agg import ops as FQ
     from repro_torch.kernels.segmented_reduce import ops as SS
     fixed = [CB.fixed_unit("flash_attention.cuh"),
+             CB.fixed_unit("flash_attention_mma.cuh"),
              CB.fixed_unit("decode_attention.cuh"),
              FQ.unit_source(**Q6_CONSTANTS), SS.unit_source()]
     records = tpch_phases(torch, sf, seed, fixed, t_all)

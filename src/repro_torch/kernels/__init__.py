@@ -9,9 +9,11 @@ kernel launches:
   function comes from the query (:class:`Body`, generated by
   ``repro_torch.native.patterns.ExprCompiler``), and ``cuda_build``
   compiles a skeleton together with its body with nvcc at first use;
-* the LM path: ``flash_attention`` (full-sequence attention) and
-  ``decode_attention`` (one token over a KV cache).  Each is one fixed
-  source in ``csrc/`` (no generated body), built the same way
+* the LM path: ``flash_attention`` (full-sequence attention; a
+  tensor-core kernel for bf16 at D 64 and 128 and a CUDA-core kernel for
+  the rest, chosen by ``flash_attention.kernel.route``) and
+  ``decode_attention`` (one token over a KV cache).  Each kernel is one
+  fixed source in ``csrc/`` (no generated body), built the same way
   (``cuda_build.fixed_unit``).
 
 The device policy is :func:`on_card`, and it looks only at the tensor it

@@ -1,10 +1,13 @@
-// flash_attention: blocked online-softmax attention with native GQA.
+// flash_attention on the CUDA cores: blocked online-softmax attention with
+// native GQA, for f32 and for bf16 at head widths other than 64 and 128.
 //
 // Replaces the Pallas kernel flash_attention (src/repro/kernels/
-// flash_attention/kernel.py), whose grid walks (head, q block, k block)
+// flash_attention/kernel.py:73), whose grid walks (head, q block, k block)
 // in order and carries the softmax state in VMEM scratch between k steps.
-// Here one thread block owns one (query head, 64-row Q tile) and walks the
-// K/V tiles itself; blocks run in any order.
+// The wrapper (kernels/flash_attention/kernel.py, route()) sends bf16 at
+// D 64 and 128 to the tensor-core kernel of flash_attention_mma.cuh and
+// everything else here.  One thread block owns one (query head, 64-row Q
+// tile) and walks the K/V tiles itself; blocks run in any order.
 //
 //   q [BH, S, D], k/v [BHkv, S, D] (float or bf16), o [BH, S, D] in q's type.
 //   The KV head of query head bh is bh / group: K and V are never repeated.
@@ -27,8 +30,9 @@
 // tile on.
 //
 // Bound on the H100: operations.  S^2 * D * 4 flops per head (half under
-// causal) against q/k/v/o read once; this simple version runs the dots on
-// the f32 CUDA cores, not on tensor cores (mma/wgmma is later work).
+// causal) against q/k/v/o read once.  The dots run as f32 fmaf on the CUDA
+// cores (67 TFLOP/s in f32), so this kernel stays far above the bf16
+// tensor-core bound; it serves the route's other dtypes and widths.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

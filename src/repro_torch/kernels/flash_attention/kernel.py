@@ -2,18 +2,27 @@
 
 Replaces the Pallas kernel ``flash_attention`` of
 ``src/repro/kernels/flash_attention/kernel.py`` (and its 4-D wrapper in
-``ops.py``).  The CUDA kernel (``csrc/flash_attention.cuh``) gives one
-thread block to each (query head, 64-row Q tile); the block walks the K/V
-tiles of its KV head (``h // group``: K and V are never repeated) through
-shared memory and keeps the running max, denominator and accumulator in
-f32 registers.  Any ``S`` is taken (the last tiles are masked), and under
+``ops.py``) with two CUDA kernels of the same function, chosen by
+:func:`route` from the dtype and the head width alone:
+
+* ``"mma"`` (``csrc/flash_attention_mma.cuh``): bf16 at D 64 or 128, the
+  widths of every bf16 config but pixtral (160) and recurrentgemma (256).
+  Both products run on the tensor cores (``mma.sync`` m16n8k16 bf16, f32
+  accumulators; P split into bf16 high and low parts, so it keeps f32
+  grade) and K/V tiles stream through shared memory by ``cp.async``;
+* ``"cuda_cores"`` (``csrc/flash_attention.cuh``): f32, and bf16 at any
+  other D in [16, 256]; the dots run in f32 on the CUDA cores.
+
+Each gives one thread block to a (query head, 64-row Q tile); the block
+walks the K/V tiles of its KV head (``h // group``: K and V are never
+repeated) and keeps the running max, denominator and accumulator in f32
+registers.  Any ``S`` is taken (the last tiles are masked), and under
 ``causal`` the tiles above the diagonal are skipped, which is exact.  The
 TPU kernel's block sizes are not carried over.
 
 Bound on the H100: operations, ``4 * S^2 * D`` flops per query head (half
-under ``causal``) at the bf16 tensor-core rate; this first version runs
-the dots on the f32 CUDA cores (tensor cores are later work), so it sits
-well above that bound.  Its time, bound and plain time are in ``PERF.md``.
+under ``causal``) at the bf16 tensor-core rate.  The times, bounds and
+plain times of both kernels are in ``PERF.md``.
 """
 from __future__ import annotations
 
@@ -25,18 +34,49 @@ import torch
 from repro_torch.kernels import KernelBudgetError, on_card
 from repro_torch.kernels import cuda_build as CB
 
-#: Kernel launches by :func:`flash_attention_core`.
+#: Kernel launches by :func:`flash_attention_core`: all of them, and by
+#: route (:func:`route`).
 launches = 0
+launches_mma = 0
+launches_cuda_cores = 0
 
 NEG_INF = -1e30
 
-#: The head widths the CUDA kernel takes.
+#: The head widths the CUDA-core kernel takes, and those of the
+#: tensor-core kernel (bf16 only).
 MIN_D, MAX_D = 16, 256
+MMA_D = (64, 128)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_MMA_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call of this dtype and head width takes:
+    ``"mma"`` (tensor cores) or ``"cuda_cores"``."""
+    return "mma" if dtype == torch.bfloat16 and d in MMA_D else "cuda_cores"
+
+
+def mma_resources() -> dict:
+    """Registers and local (spill) bytes per thread, static and dynamic
+    shared bytes per block of the tensor-core kernel at each width (the
+    unit is built and loaded on first use)."""
+    fn = CB.entry(CB.fixed_unit("flash_attention_mma.cuh"),
+                  "flare_flash_attention_mma_attrs",
+                  [ctypes.c_int, ctypes.c_void_p])
+    out = {}
+    for d in MMA_D:
+        vals = (ctypes.c_int * 4)()
+        CB.raise_on(fn(d, ctypes.cast(vals, ctypes.c_void_p)),
+                    "flash_attention_mma attributes")
+        out[d] = dict(zip(("registers", "local_bytes", "static_smem",
+                           "dynamic_smem"), list(vals)))
+    return out
 
 
 def _check_shapes(q, k, v) -> None:
@@ -87,7 +127,7 @@ def flash_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not on_card(q):
         return flash_attention_core_plain(q, k, v, causal=causal,
                                           scale=scale)
-    global launches
+    global launches, launches_mma, launches_cuda_cores
     bh, s, d = q.shape
     if not MIN_D <= d <= MAX_D:
         raise KernelBudgetError(f"flash_attention: head dim {d} outside "
@@ -102,21 +142,37 @@ def flash_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = d ** -0.5
     CB.check_device(q)
-    fn = CB.entry(CB.fixed_unit("flash_attention.cuh"),
-                  "flare_flash_attention", _ARGS)
     out = torch.empty_like(q)
-    err = fn(CB.ptr(q), CB.ptr(k), CB.ptr(v), CB.ptr(out), bh, k.shape[0],
-             s, d, int(causal), float(scale), _DTYPES[q.dtype], CB.stream(q))
+    if route(q.dtype, d) == "mma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise KernelBudgetError(
+                    f"flash_attention: {name} must start on a 16-byte "
+                    f"boundary (the tensor-core kernel copies 16-byte "
+                    f"chunks)")
+        fn = CB.entry(CB.fixed_unit("flash_attention_mma.cuh"),
+                      "flare_flash_attention_mma", _MMA_ARGS)
+        err = fn(CB.ptr(q), CB.ptr(k), CB.ptr(v), CB.ptr(out), bh,
+                 k.shape[0], s, d, int(causal), float(scale), CB.stream(q))
+        launches_mma += 1
+    else:
+        fn = CB.entry(CB.fixed_unit("flash_attention.cuh"),
+                      "flare_flash_attention", _ARGS)
+        err = fn(CB.ptr(q), CB.ptr(k), CB.ptr(v), CB.ptr(out), bh,
+                 k.shape[0], s, d, int(causal), float(scale),
+                 _DTYPES[q.dtype], CB.stream(q))
+        launches_cuda_cores += 1
     launches += 1
     CB.raise_on(err, "flash_attention")
     return out
 
 
 def _check_4d(q, k, v) -> None:
-    if q.dim() != 4 or k.dim() != 4 or q.shape[0] != k.shape[0]:
+    if q.dim() != 4 or k.dim() != 4 or q.shape[0] != k.shape[0] \
+            or k.shape != v.shape:
         raise KernelBudgetError(
             f"flash_attention: q [B,H,S,D] and k/v [B,Hkv,S,D] expected, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}")
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if on_card(q):
         for name, t in (("q", q), ("k", k), ("v", v)):
             if not t.is_contiguous():

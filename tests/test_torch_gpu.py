@@ -147,21 +147,31 @@ def _randn(gen, shape, dtype, dev):
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
+#: (b, h, hkv, s, d): the first four since the CUDA-core kernel landed;
+#: then the tensor-core kernel's widths at S 64 (one tile), 97 and 1000
+#: (ragged last tiles) and 300, each at GQA groups 1, 2 and 4.
+FLASH_SHAPES = [(1, 2, 1, 128, 64), (2, 4, 2, 200, 32), (1, 8, 2, 97, 128),
+                (2, 16, 8, 300, 64)] + [
+    (2, 2 * g, 2, s, d) for d in (64, 128) for s in (64, 97, 300, 1000)
+    for g in (1, 2, 4)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("b,h,hkv,s,d", [
-    (1, 2, 1, 128, 64), (2, 4, 2, 200, 32), (1, 8, 2, 97, 128),
-    (2, 16, 8, 300, 64)])
+@pytest.mark.parametrize("b,h,hkv,s,d", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(card, dtype, causal, b, h, hkv, s, d):
     gen = torch.Generator(device=card).manual_seed(s * d + h)
     q = _randn(gen, (b, h, s, d), dtype, card)
     k = _randn(gen, (b, hkv, s, d), dtype, card)
     v = _randn(gen, (b, hkv, s, d), dtype, card)
-    before = FL.launches
+    before = (FL.launches, FL.launches_mma, FL.launches_cuda_cores)
     got = FL.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert FL.launches == before + 1
+    mma = FL.route(dtype, d) == "mma"
+    assert mma == (dtype == torch.bfloat16 and d in (64, 128))
+    assert (FL.launches, FL.launches_mma, FL.launches_cuda_cores) == (
+        before[0] + 1, before[1] + mma, before[2] + (not mma))
     want = FL.flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     assert_within_rounding(got, want, dtype)
@@ -202,6 +212,26 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(card):
         FL.flash_attention(q, kt, kt)
     with pytest.raises(KernelBudgetError):
         FL.flash_attention(q.half(), q.half(), q.half())
+    # the tensor-core kernel: 16-byte aligned, contiguous, one dtype
+    before = (FL.launches, FL.launches_mma, FL.launches_cuda_cores)
+    for d in (64, 128):
+        flat = torch.zeros(2 * 64 * d + 1, device=card, dtype=torch.bfloat16)
+        odd = flat[1:].view(1, 2, 64, d)          # 2 bytes off 16
+        good = torch.zeros(1, 2, 64, d, device=card, dtype=torch.bfloat16)
+        with pytest.raises(KernelBudgetError):
+            FL.flash_attention(odd, good, good)
+        with pytest.raises(KernelBudgetError):
+            FL.flash_attention(good, odd, good)
+        with pytest.raises(KernelBudgetError):
+            FL.flash_attention(good, good.transpose(2, 3).contiguous()
+                               .transpose(2, 3), good)
+        with pytest.raises(KernelBudgetError):
+            FL.flash_attention(good, good.float(), good)
+        with pytest.raises(KernelBudgetError):
+            FL.flash_attention(good, good[:, :1].contiguous(),
+                               good[:, :1, :32].contiguous())
+    assert (FL.launches, FL.launches_mma,
+            FL.launches_cuda_cores) == before
     lengths = torch.ones(1, dtype=torch.int32, device=card)
     qd = torch.zeros(1, 2, 12, device=card)
     kd = torch.zeros(1, 1, 64, 12, device=card)
