@@ -24,18 +24,25 @@ Phases, in order; any failure exits non-zero:
    then one profiled run per query: device time, busy share, top kernels;
 5. goldens: q1, q6, q13 and q14 at SF 0.01 against ``tests/golden``;
 6. the LM path's kernels against their plain versions, on the path's own
-   inputs, after a line with the tensor-core flash kernel's registers,
-   shared memory and spill bytes: ``flash_attention`` on layer 0's q/k/v
-   of the full-width ``qwen3-0.6b`` forward -- the tensor-core kernel
-   (B 4 x S 4096, bf16, causal; also non-causal, and S 4000, not a
-   multiple of the tile) and the CUDA-core kernel on the same inputs in
-   f32 --, ``decode_attention`` on the serving path's layer-0 cache after
-   prefill (B 8, 2048 + 1 positions) and at ``decode_32k``'s length (B 8,
-   S 32 768, lengths from the seed); each held to one rounding of its
-   plain version's output (bf16, or the f32 kernel tests' limit), a limit
-   that must also reject faults planted on the same inputs (among them
-   the KV heads rolled by one); kernel, plain and
-   ``scaled_dot_product_attention`` times, the bound;
+   inputs, after lines with the tensor-core flash kernel's and the decode
+   kernel's registers, shared memory and spill bytes:
+   ``flash_attention`` on layer 0's q/k/v of the full-width
+   ``qwen3-0.6b`` forward -- the tensor-core kernel (B 4 x S 4096, bf16,
+   causal; also non-causal, and S 4000, not a multiple of the tile) and
+   the CUDA-core kernel on the same inputs in f32 --, ``decode_attention``
+   on the serving path's layer-0 cache after prefill (B 8, 2048 + 1
+   positions) and at ``decode_32k``'s length (B 8, S 32 768, lengths from
+   the seed); each held to one rounding of its plain version's output
+   (bf16, or the f32 kernel tests' limit), a limit that must also reject
+   faults planted on the same inputs (among them the KV heads rolled by
+   one); kernel, plain and ``scaled_dot_product_attention`` times by
+   events around eager calls, the bound; for decode also two calls
+   bit-identical, the schedule the kernel wrote (chunk, items) against
+   its Python mirror, ``device_ms`` and ``library_device_ms`` (a CUDA
+   graph of one call replayed after an L2 flush, median), the wrapper's
+   host microseconds per call, and ``no_memset_device_ms``: the kernel
+   built without its ticket memset (the folding block resets the ticket),
+   bit-identical to the kernel;
 7. the LM main path, weights from the seed on the card: ``Model.forward``
    with ``attn_impl="pallas"`` at B 4 x S 4096 (28 tensor-core flash
    launches per forward) against ``attn_impl="blockwise"``, its
@@ -45,7 +52,9 @@ Phases, in order; any failure exits non-zero:
    ms, tokens/s; prefill takes the tensor-core kernel on every layer);
    the prefill and decode logits against a forward over prompt +
    completion; launch counts (reset just before, read just after); one
-   profiled forward and decode run;
+   profiled forward and four profiled decode steps (``flare_decode_kernel``
+   launched once per wrapper call, by the profile's kernel count: the
+   decode records' ``launches_per_call``);
 8. the paper's Q6/Q1 engine ladder on the SF 10 context of phases 2-5
    (run after phase 5, before the LM phases): q6 and q1 on ``volcano``
    (once, numpy f64 on the host), ``stage`` (median of 5), ``compiled``
@@ -69,6 +78,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import math
@@ -189,6 +199,56 @@ def cuda_ms(torch, fn, runs: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+#: graph_ms: bytes read between replays to evict the 50 MB L2 cache (a
+#: read, so no dirty lines are written back during the timed replay), and
+#: the sleep that holds the stream while the host launches the replay
+L2_FLUSH_BYTES = 128 << 20
+SLEEP_CYCLES = 200_000
+
+
+def graph_ms(torch, fn, runs: int = 20) -> float:
+    """Device ms of one call of ``fn``: a CUDA graph of the call, replayed
+    between two events, each replay after an L2 flush and behind a sleep
+    that hides the host's launch; the median of ``runs`` replays."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fn()
+        with torch.cuda.graph(graph):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    times = []
+    for _ in range(runs + 1):
+        flush.amax()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph, flush
+    return float(np.median(times[1:]))
+
+
+def wrapper_us(torch, fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn``: the wall time of ``calls``
+    calls issued without a sync, over ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def host_ms(torch, fn, runs: int = 5) -> float:
@@ -712,11 +772,69 @@ def flash_record(torch, F, FL, q, k, v, causal: bool, label: str,
     return rec
 
 
-def decode_record(torch, F, DA, q, k, v, lengths, label: str) -> dict:
-    got = DA.decode_attention(q, k, v, lengths)
-    want = DA.decode_attention_plain(q, k, v, lengths)
-    err, _ = close_err(torch, got, want, label)
+def decode_reset_unit(CB) -> str:
+    """The decode unit without its ticket memset: the block that folds a
+    pair sets the pair's ticket back to 0, so a scratch zeroed once serves
+    every call on one stream.  A follow-up's design, timed beside the
+    kernel in phase 6 (``no_memset_device_ms``)."""
+    src = CB.fixed_unit("decode_attention.cuh")
+    for old, new in {
+            "cudaMemsetAsync(words, 0, (size_t)(pairs + 4) * 4, s)":
+                "cudaSuccess",
+            "    if (!*flag_s) continue;\n":
+                "    if (!*flag_s) continue;\n    if (t == 0) a.ctr[it.bkv] = 0;\n",
+    }.items():
+        check(src.count(old) == 1, f"decode unit: '{old.strip()}' is not "
+              f"in csrc/decode_attention.cuh once")
+        src = src.replace(old, new)
+    return src
+
+
+def decode_reset_call(torch, CB, DA, q, k, v, lengths):
+    """One call of :func:`decode_reset_unit`'s kernel on these inputs, on a
+    scratch zeroed once (not the wrapper: its launches are not counted)."""
+    src = decode_reset_unit(CB)
     b, h, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    group, dt = h // hkv, DA._DTYPES[q.dtype]
+    out = (ctypes.c_int * 2)()
+    CB.raise_on(CB.entry(src, "flare_decode_prepare",
+                         DA._SIGNATURES["flare_decode_prepare"])(
+        dt, b, group, d, ctypes.cast(out, ctypes.c_void_p)),
+        "decode without memset: occupancy")
+    grid = out[0] * CB.sm_count(q)
+    scratch = torch.zeros(DA.scratch_words(b, hkv, group, d, grid),
+                          dtype=torch.int32, device=q.device)
+    run = CB.entry(src, "flare_decode_attention",
+                   DA._SIGNATURES["flare_decode_attention"])
+
+    def call():
+        o = torch.empty_like(q)
+        CB.raise_on(run(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        lengths.data_ptr(), o.data_ptr(), b, hkv, group, s,
+                        d, d ** -0.5, dt, grid, scratch.data_ptr(),
+                        CB.stream(q)), "decode without memset")
+        return o
+    return call
+
+
+def decode_record(torch, F, CB, DA, q, k, v, lengths, label: str) -> dict:
+    b, h, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    got, sched = DA.decode_attention_launch(q, k, v, lengths)
+    want = DA.decode_attention_plain(q, k, v, lengths)
+    err, excess = close_err(torch, got, want, label)
+    # the schedule the kernel computed on the device, against the mirror
+    grid = DA.grid_size(q, b, h // hkv, d)
+    chunk, items = DA.decode_schedule(lengths.tolist(), hkv, s, d,
+                                      q.element_size(), grid)
+    sched = sched.tolist()
+    check(sched == [chunk, len(items)], f"{label}: the kernel's schedule "
+          f"[chunk, items] {sched} is not the mirror's {[chunk, len(items)]}")
+    again = DA.decode_attention(q, k, v, lengths)
+    check(torch.equal(got, again), f"{label}: two calls on the same inputs "
+          f"differ (the fold must run in item order)")
+    del again
     planted_faults(torch, want, {
         "output x 0.9": got * 0.9,
         "softmax scale x 0.9": DA.decode_attention(
@@ -726,7 +844,14 @@ def decode_record(torch, F, DA, q, k, v, lengths, label: str) -> dict:
         "length off by one": DA.decode_attention(
             q, k, v, (lengths - 1).clamp_min(1))}, label)
     del want
-    hkv, s = k.shape[1], k.shape[2]
+
+    def kernel():
+        return DA.decode_attention(q, k, v, lengths)
+
+    reset = decode_reset_call(torch, CB, DA, q, k, v, lengths)
+    for _ in range(2):          # the second call finds the tickets reset
+        check(torch.equal(reset(), got), f"{label}: the kernel without "
+              f"its memset differs from the kernel")
     n = lengths.clamp(0, s)
     n = torch.where(n == 0, s, n)               # length 0 reads every row
     rows = int(n.sum()) * hkv                   # cache rows the data needs
@@ -736,6 +861,11 @@ def decode_record(torch, F, DA, q, k, v, lengths, label: str) -> dict:
     mask = (torch.arange(s, device=q.device)[None, :]
             < lengths[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+
     rec = dict(
         name=label, route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cuh",
@@ -743,13 +873,17 @@ def decode_record(torch, F, DA, q, k, v, lengths, label: str) -> dict:
         shape=(f"B {b} x H {h} (Hkv {hkv}) x S {s} x D {d}, "
                f"{str(q.dtype).split('.')[-1]}, lengths "
                f"{lengths.tolist()}"),
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: DA.decode_attention(q, k, v, lengths)),
+        max_abs_err=err, err_over_limit=excess,
+        ms=cuda_ms(torch, kernel),
         plain_ms=cuda_ms(torch, lambda: DA.decode_attention_plain(
             q, k, v, lengths), runs=5, warmup=1),
         bound_ms=bnd, bound_by=by,
-        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k, v, attn_mask=mask, enable_gqa=True)))
+        library_ms=cuda_ms(torch, library),
+        device_ms=graph_ms(torch, kernel),
+        library_device_ms=graph_ms(torch, library),
+        wrapper_host_us=wrapper_us(torch, kernel),
+        no_memset_device_ms=graph_ms(torch, reset),
+        grid=grid, chunk=sched[0], items=sched[1])
     log("[kernel] " + json.dumps(rec))
     return rec
 
@@ -767,6 +901,7 @@ def lm_kernel_checks(torch, F, Model, serve_llm, FL, DA, cfg, params,
                      tokens, seed: int) -> list:
     """Phase 6: each attention kernel against its plain version on the
     LM path's own inputs."""
+    from repro_torch.kernels import cuda_build as CB
     records = []
     with CaptureFirst(FL, "flash_attention") as cap:
         Model(cfg).forward(params, {"tokens": tokens})
@@ -798,7 +933,7 @@ def lm_kernel_checks(torch, F, Model, serve_llm, FL, DA, cfg, params,
                              SERVE_PROMPT + SERVE_GEN, cfg.head_dim_)
           and bool((lengths == SERVE_PROMPT + 1).all()),
           f"serving cache {tuple(k.shape)}, lengths {lengths.tolist()}")
-    records.append(decode_record(torch, F, DA, q, k, v, lengths,
+    records.append(decode_record(torch, F, CB, DA, q, k, v, lengths,
                                  "decode_attention"))
     del q, k, v, cap
 
@@ -811,7 +946,7 @@ def lm_kernel_checks(torch, F, Model, serve_llm, FL, DA, cfg, params,
     v = torch.randn(k.shape, generator=g, device="cuda").bfloat16()
     lengths = torch.randint(1, c["s"] + 1, (c["b"],), generator=g,
                             device="cuda", dtype=torch.int32)
-    records.append(decode_record(torch, F, DA, q, k, v, lengths,
+    records.append(decode_record(torch, F, CB, DA, q, k, v, lengths,
                                  "decode_attention[decode_32k]"))
     torch.cuda.synchronize()
     return records
@@ -907,9 +1042,11 @@ def lm_main_path(torch, Model, serve_llm, FL, DA, cfg, params, tokens,
     return out
 
 
-def lm_profile(torch, Model, serve_llm, cfg, params, tokens) -> dict:
+def lm_profile(torch, Model, serve_llm, DA, cfg, params, tokens) -> dict:
     """Phase 7b: one profiled forward and four profiled decode steps:
-    device time, busy share and the kernels that take most of it."""
+    device time, busy share and the kernels that take most of it; for
+    decode also the decode kernels' launches against the wrapper's
+    calls."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import param as PM
@@ -931,12 +1068,14 @@ def lm_profile(torch, Model, serve_llm, cfg, params, tokens) -> dict:
     for name, fn in runs.items():
         fn()
         torch.cuda.synchronize()
+        calls = DA.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
+        calls = DA.launches - calls
         kernels = [e for e in prof.key_averages()
                    if getattr(e, "device_type", None) is not None
                    and "CUDA" in str(e.device_type)]
@@ -947,6 +1086,18 @@ def lm_profile(torch, Model, serve_llm, cfg, params, tokens) -> dict:
                      "device_busy_share": dev / wall if wall else None,
                      "top": [[e.key[:70], e.self_device_time_total / 1e3,
                               e.count] for e in top]}
+        if name.startswith("decode"):
+            # one decode launch per wrapper call (a layer of a step): the
+            # kernel, no fold pass
+            dec = [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                   for e in kernels if "flare_decode" in e.key]
+            check(calls == 4 * cfg.n_layers and len(dec) == 1
+                  and "flare_decode_kernel" in dec[0][0]
+                  and dec[0][2] == calls,
+                  f"decode x4 ran the decode kernels {dec} in {calls} "
+                  f"wrapper calls, not one kernel once a call")
+            out[name]["decode_attention"] = dec[0]
+            out[name]["decode_calls"] = calls
         log(f"[profile] {json.dumps({'lm': name, **out[name]})}")
     del caches
     return out
@@ -975,6 +1126,14 @@ def lm_phases(torch, seed: int, launches_out: dict) -> list:
     log(f"[lm] flash_attention_mma resources by head width (registers and "
         f"local spill bytes per thread, shared bytes per block): "
         f"{json.dumps(FL.mma_resources())}")
+    c = DECODE32K
+    log(f"[lm] decode_attention resources (registers and local spill bytes "
+        f"per thread, shared bytes per block, blocks per SM), at the path's "
+        f"bf16 group {c['group']} D {c['d']} and at f32 group 8 D 256: "
+        + json.dumps({
+            "bf16 G2 D64": DA.resources(torch.bfloat16, SERVE_BATCH,
+                                        c["group"], c["d"]),
+            "f32 G8 D256": DA.resources(torch.float32, SERVE_BATCH, 8, 256)}))
     records = lm_kernel_checks(torch, F, Model, serve_llm, FL, DA, cfg,
                                params, tokens, seed)
     torch.cuda.empty_cache()
@@ -982,7 +1141,12 @@ def lm_phases(torch, seed: int, launches_out: dict) -> list:
                         tokens, labels)
     launches_out.update(main["launches"])
     torch.cuda.empty_cache()
-    lm_profile(torch, Model, serve_llm, cfg, params, tokens)
+    dec = lm_profile(torch, Model, serve_llm, DA, cfg, params,
+                     tokens)["decode x4"]
+    for r in records:
+        if r["name"].startswith("decode_attention"):
+            r["launches_per_call"] = (dec["decode_attention"][2]
+                                      / dec["decode_calls"])
     log(f"[lm] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phases 6-7 "
         f"took {time.perf_counter() - t0:.1f} s")
@@ -1329,7 +1493,7 @@ def run(sf: float, seed: int) -> int:
     from repro_torch.kernels.segmented_reduce import ops as SS
     fixed = [CB.fixed_unit("flash_attention.cuh"),
              CB.fixed_unit("flash_attention_mma.cuh"),
-             CB.fixed_unit("decode_attention.cuh"),
+             CB.fixed_unit("decode_attention.cuh"), decode_reset_unit(CB),
              FQ.unit_source(**Q6_CONSTANTS), SS.unit_source()]
     records = tpch_phases(torch, sf, seed, fixed, t_all)
     torch.cuda.empty_cache()

@@ -244,6 +244,140 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(card):
     kd = torch.zeros(1, 1, 64, 32, device=card)
     with pytest.raises(KernelBudgetError):
         DA.decode_attention(qd, kd, kd, lengths.long())
+    # the bulk copies take 16-byte aligned rows; the batch has a cap
+    flat = torch.zeros(64 * 32 + 1, device=card, dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 1, 64, 32)
+    good = torch.zeros(1, 1, 64, 32, device=card, dtype=torch.bfloat16)
+    with pytest.raises(KernelBudgetError):
+        DA.decode_attention(good[:, :, 0].repeat(1, 2, 1), good, odd,
+                            lengths)
+    big = DA.MAX_BATCH + 1
+    with pytest.raises(KernelBudgetError):
+        DA.decode_attention(torch.zeros(big, 1, 16, device=card),
+                            torch.zeros(big, 1, 1, 16, device=card),
+                            torch.zeros(big, 1, 1, 16, device=card),
+                            torch.ones(big, dtype=torch.int32, device=card))
+
+
+def _decode_inputs(card, dtype, b, h, hkv, s, d, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return (_randn(gen, (b, h, d), dtype, card),
+            _randn(gen, (b, hkv, s, d), dtype, card),
+            _randn(gen, (b, hkv, s, d), dtype, card))
+
+
+#: (name, dtype, b, h, hkv, s, d, lengths): one sequence at S and the rest
+#: at 1 (the split follows the valid keys); group 8 at D 256 in f32 (a
+#: tile is 8 keys); S not a multiple of the tile (64 keys at bf16 D 64,
+#: 32 at f32 D 64) with lengths on and off its edges
+DECODE_EDGES = [
+    ("skewed", torch.bfloat16, 8, 16, 8, 4096, 64,
+     [4096] + [1] * 7),
+    ("skewed f32", torch.float32, 8, 16, 8, 4096, 64,
+     [1] * 7 + [4096]),
+    ("group 8, D 256", torch.float32, 3, 16, 2, 300, 256, [300, 1, 0]),
+    ("S off the tile", torch.bfloat16, 4, 4, 2, 1000, 64,
+     [1000, 999, 65, 64]),
+    ("S off the tile f32", torch.float32, 4, 4, 2, 1000, 64,
+     [1000, 33, 32, -5]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype,b,h,hkv,s,d,lens", DECODE_EDGES,
+                         ids=[e[0] for e in DECODE_EDGES])
+def test_decode_kernel_edges_match_plain(card, name, dtype, b, h, hkv, s, d,
+                                         lens):
+    q, k, v = _decode_inputs(card, dtype, b, h, hkv, s, d, s + d)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+    got = DA.decode_attention(q, k, v, lengths)
+    assert_within_rounding(got, DA.decode_attention_plain(q, k, v, lengths),
+                           dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group,d", [(1, 16), (3, 24), (5, 72), (6, 136),
+                                     (7, 200), (8, 256)])
+def test_decode_kernel_odd_groups_and_widths(card, dtype, group, d):
+    """Groups that are not a power of two, and rows of 16-byte vectors
+    that are not (24 bf16 is 3 vectors, 200 f32 is 50)."""
+    b, hkv, s = 3, 2, 333
+    q, k, v = _decode_inputs(card, dtype, b, hkv * group, hkv, s, d, d)
+    lengths = torch.tensor([333, 1, 170], dtype=torch.int32, device=card)
+    got = DA.decode_attention(q, k, v, lengths)
+    assert_within_rounding(got, DA.decode_attention_plain(q, k, v, lengths),
+                           dtype)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_above_65535_pairs(card):
+    """B * Hkv = 65 536: the persistent grid has no per-pair extent."""
+    b, hkv = DA.MAX_BATCH, 8
+    q, k, v = _decode_inputs(card, torch.bfloat16, b, hkv, hkv, 24, 16, 5)
+    lengths = torch.randint(0, 30, (b,), dtype=torch.int32, device=card,
+                            generator=torch.Generator(device=card)
+                            .manual_seed(5))
+    got = DA.decode_attention(q, k, v, lengths)
+    assert_within_rounding(got, DA.decode_attention_plain(q, k, v, lengths),
+                           torch.bfloat16)
+
+
+#: lengths at B 8, S 2080: ragged (0, 1, S, above S, negative), the
+#: serving path's (prompt + 1), and one long sequence among short ones
+SCHEDULE_LENGTHS = {
+    "ragged": [2049, 1, 2080, 0, 5000, 700, 64, -3],
+    "serving": [2049] * 8,
+    "skewed": [1] * 7 + [2080],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lens", list(SCHEDULE_LENGTHS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_is_bit_identical_and_schedules_as_the_mirror(card,
+                                                                    dtype,
+                                                                    lens):
+    """Two calls on the same inputs agree bit for bit (the tickets reset,
+    the fold runs in item order), one launch each, and the schedule the
+    kernel computed on the device is the Python mirror's."""
+    b, h, hkv, s, d = 8, 16, 8, 2080, 64
+    q, k, v = _decode_inputs(card, dtype, b, h, hkv, s, d, 11)
+    lengths = torch.tensor(SCHEDULE_LENGTHS[lens], dtype=torch.int32,
+                           device=card)
+    before = DA.launches
+    one, sched = DA.decode_attention_launch(q, k, v, lengths)
+    two, _ = DA.decode_attention_launch(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert DA.launches == before + 2
+    assert torch.equal(one, two)
+    grid = DA.grid_size(q, b, h // hkv, d)
+    chunk, items = DA.decode_schedule(lengths.tolist(), hkv, s, d,
+                                      q.element_size(), grid)
+    assert sched.tolist() == [chunk, len(items)]
+    assert_within_rounding(one, DA.decode_attention_plain(q, k, v, lengths),
+                           dtype)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_replays_in_a_cuda_graph(card):
+    b, h, hkv, s, d = 8, 16, 8, 2080, 64
+    q, k, v = _decode_inputs(card, torch.bfloat16, b, h, hkv, s, d, 12)
+    lengths = torch.full((b,), 2049, dtype=torch.int32, device=card)
+    eager = DA.decode_attention(q, k, v, lengths)   # builds and caches
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        DA.decode_attention(q, k, v, lengths)
+        with torch.cuda.graph(graph):
+            out = DA.decode_attention(q, k, v, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    out.zero_()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 # ---------------------------------------------------------------------------

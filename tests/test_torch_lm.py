@@ -456,9 +456,3 @@ def test_attention_units_are_fixed_sources():
         assert src.count("fmaf(") >= 2
         assert CB.library_path(src).parent == CB.BUILD_DIR
 
-
-@pytest.mark.parametrize("bhkv,s,want", [(64, 2080, 32), (64, 32768, 512),
-                                         (1, 100, 32), (1, 10 ** 8, 4096)])
-def test_decode_split_sizes(bhkv, s, want):
-    kpp = DA.keys_per_part(bhkv, s, 132)
-    assert kpp == want and kpp % 32 == 0
