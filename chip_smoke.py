@@ -12,16 +12,32 @@ Phases, in order; any failure exits non-zero:
    with one nvcc per unit, all at once;
 3. kernels against their plain PyTorch versions, on the main path's own
    inputs (captured from one native run of q6, a q1-shaped grouped query
-   with an ``any_`` max slot, q14, q5 and q3): ``filter_agg_general``,
-   ``segmented_multi_sum`` and ``join_probe_agg`` keyless, grouped in
-   shared memory and grouped by global atomics; kernel, plain and
-   library-call times by CUDA events, the bound from bytes and operations;
+   with an ``any_`` max slot, q14, q19, q5 and q3): ``filter_agg_general``,
+   ``segmented_multi_sum`` and ``join_probe_agg`` keyless (q14, q19),
+   grouped in shared memory (q5) and grouped by global atomics (q3), and
+   on q14's index with every other part dropped (gapped: the search
+   route); kernel, plain and library-call times by CUDA events, the bound
+   from bytes and operations.  For ``join_probe_agg`` also: every
+   single-column primary-key index dense and identity and partsupp's
+   composite one not dense; ``device_ms`` (a CUDA graph of one call
+   replayed after an L2 flush) and ``search_device_ms`` (the same call
+   with the index's ``meta`` zeroed: the binary-search route of the same
+   kernel), keyless results bit-identical between the two routes;
+   ``bound_ms`` from the bytes the work needs (the mask, the key columns'
+   sectors holding a valid row, the other probe columns' sectors holding
+   a matched row, the matched build rows) beside
+   ``bound_all_rows_ms`` (every probe and build column read in full),
+   the shared accumulator's copies (``reps``) and the unit's registers,
+   spill bytes, shared bytes and resident blocks per SM (the grid is
+   that many blocks per SM);
 4. the main path: all TPC-H queries and every template binding through
    ``lower(engine="compiled", native=True).compile()``, the fired patterns
    held against ``EXPECTED_PATTERNS``, each result against the generic
    ``compiled`` lowering, each kernel's launch count (reset just before,
    read just after), steady-state ms per query, one build per template;
-   then one profiled run per query: device time, busy share, top kernels;
+   then one profiled run per query: device time, busy share, top kernels
+   (a warmed profiler step), and the busy share of a profile without the
+   warm step, the kind of profile earlier versions of this script took;
 5. goldens: q1, q6, q13 and q14 at SF 0.01 against ``tests/golden``;
 6. the LM path's kernels against their plain versions, on the path's own
    inputs, after lines with the tensor-core flash kernel's and the decode
@@ -52,9 +68,12 @@ Phases, in order; any failure exits non-zero:
    ms, tokens/s; prefill takes the tensor-core kernel on every layer);
    the prefill and decode logits against a forward over prompt +
    completion; launch counts (reset just before, read just after); one
-   profiled forward and four profiled decode steps (``flare_decode_kernel``
-   launched once per wrapper call, by the profile's kernel count: the
-   decode records' ``launches_per_call``);
+   profiled forward and four decode steps profiled four times with a
+   warm step and four times without (``flare_decode_kernel`` launched
+   once per wrapper call in more than half of the profiles: the decode
+   records' ``launches_per_call``;
+   each profile's device events and those it missed against the
+   fullest);
 8. the paper's Q6/Q1 engine ladder on the SF 10 context of phases 2-5
    (run after phase 5, before the LM phases): q6 and q1 on ``volcano``
    (once, numpy f64 on the host), ``stage`` (median of 5), ``compiled``
@@ -68,7 +87,11 @@ Phases, in order; any failure exits non-zero:
    the tuple engine at SF 0.01 against the goldens and volcano; both
    kernels against their plain versions (SF 10 columns, and G 512 codes
    from the seed; bit for bit on dyadic inputs at ragged lengths and
-   unaligned views; G 513 and 700 launch nothing); the direct-from-CSV
+   unaligned views; G 513 and 700 launch nothing), with ``device_ms`` for
+   ``segmented_sum`` and ``library_device_ms`` for ``bincount`` (its
+   kernels' device time by torch.profiler, the median of three profiles
+   that saw the same events: it syncs with the host, so no graph holds
+   it) and the accumulator's copies (``reps``); the direct-from-CSV
    row (lineitem at SF 0.1 through ``io.to_csv`` and
    ``read_csv_compiled``, then compiled q6) against the preloaded q6.
 
@@ -238,6 +261,108 @@ def graph_ms(torch, fn, runs: int = 20) -> float:
     return float(np.median(times[1:]))
 
 
+def in_launch_order(events) -> list:
+    """Names of the device events (kernels and copies) among a profile's
+    ``events``, by start time."""
+    dev = [e for e in events if "CUDA" in str(getattr(e, "device_type", ""))
+           and not e.name.startswith("ProfilerStep")]
+    return [e.name for e in sorted(dev, key=lambda e: e.time_range.start)]
+
+
+def profiled(torch, fn, warm=None):
+    """The device events (kernels and copies) of one call of ``fn`` by
+    torch.profiler (CUPTI), its wall ms, and the events' names in launch
+    order.  The profiler records its second step only: the first
+    (``warm``, else ``fn``) runs while tracing comes up, whose cost would
+    otherwise land in the wall time (:func:`profiled_cold` is the kind
+    without it).  Either kind can miss device events at random
+    (:func:`lost_events`), and one profile of a call (phase 8, ``bincount``)
+    held an event more than the others, so a caller that needs every event
+    takes several profiles and keeps those that agree."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    done = []   # the recorded step's events, handed over as it ends
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: done.append(
+                     (p.key_averages(), in_launch_order(p.events())))
+                 ) as prof:
+        (warm or fn)()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    check(len(done) == 1, "the profiler recorded no step")
+    # the step's own annotation spans its kernels on the device too
+    events = [e for e in done[0][0]
+              if "CUDA" in str(getattr(e, "device_type", ""))
+              and not e.key.startswith("ProfilerStep")]
+    return events, wall, done[0][1]
+
+
+def profiled_cold(torch, fn):
+    """:func:`profiled` of the kind earlier versions took: tracing comes up
+    around the one call of ``fn``, with no step before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if "CUDA" in str(getattr(e, "device_type", ""))]
+    return events, wall, in_launch_order(prof.events())
+
+
+def lost_events(want: list, got: list) -> list:
+    """The events of ``want`` (names in launch order) that ``got`` lacks,
+    as ``[index in want, name]``; ``want`` is walked in order, so an
+    event that ``got`` holds out of order counts as lost."""
+    lost, j = [], 0
+    for i, name in enumerate(want):
+        if j < len(got) and got[j] == name:
+            j += 1
+        else:
+            lost.append([i, name[:50]])
+    return lost
+
+
+def profiled_device_ms(torch, fn, agree: int = 3, most: int = 15):
+    """Device ms of one call of ``fn`` that a CUDA graph cannot capture
+    (it syncs with the host): the device time of every kernel and copy the
+    call launched, by :func:`profiled`, each call after an L2 flush.  A
+    profile can miss events or hold one that is not the call's, so it
+    profiles until ``agree`` profiles saw the same device events in the
+    same order (at most ``most`` profiles) and takes the median over
+    those.  Returns it and each profile's count of device events."""
+    flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def warm_then_flush():
+        fn()
+        flush.amax()
+
+    times, seqs = [], []
+    while len(seqs) < most:
+        events, _, names = profiled(torch, fn, warm=warm_then_flush)
+        times.append(sum(e.self_device_time_total for e in events) / 1e3)
+        seqs.append(tuple(names))
+        if names and seqs.count(seqs[-1]) >= agree:
+            break
+    del flush
+    counts = [len(q) for q in seqs]
+    check(bool(seqs[-1]) and seqs.count(seqs[-1]) >= agree,
+          f"no {agree} of {len(seqs)} profiles saw the call's device events "
+          f"alike: events {counts}")
+    full = [t for t, q in zip(times, seqs) if q == seqs[-1]]
+    return float(np.median(full)), counts
+
+
 def wrapper_us(torch, fn, calls: int = 200) -> float:
     """Host microseconds per call of ``fn``: the wall time of ``calls``
     calls issued without a sync, over ``calls``."""
@@ -331,6 +456,8 @@ def compare(torch, got, want, what: str, max_slots=()) -> float:
 def kernel_checks(torch, ctx, Q, FA, SR, JP, col, sum_, avg, count, any_,
                   lit):
     """Phase 3: returns one record per kernel mode for the JSON line."""
+    from repro_torch.core import FlareContext
+    from repro_torch.core import engines as ENG
     from repro_torch.relational.tpch import date
 
     records = []
@@ -392,44 +519,195 @@ def kernel_checks(torch, ctx, Q, FA, SR, JP, col, sum_, avg, count, any_,
         plain_ms=cuda_ms(torch, lambda: SR.segmented_multi_sum_plain(*args)),
         bound_ms=b, bound_by=by, library_ms=lib))
 
-    # -- join_probe_agg: q14 keyless, q5 shared, q3 global --------------------
-    for qname, mode in (("q14", "keyless"), ("q5", "shared"),
-                        ("q3", "global")):
+    # -- join_probe_agg: q14 and q19 keyless, q5 shared, q3 global, and a
+    # gapped index (the search route) -----------------------------------------
+    index_routes(torch, ctx, FlareContext, Q, JP, col, sum_)
+    for qname, mode in PROBE_RECORDS:
         args, kw = capture_args(torch, ctx, Q.QUERIES[qname](ctx), JP,
                                 "join_probe_agg")
-        body = args[0]
-        groups = kw.get("num_groups")
-        check(JP.accum_mode(body.n_out, groups) == mode,
-              f"{qname}: expected {mode} accumulation")
-        got = JP.join_probe_agg(*args, **kw)
-        want = JP.join_probe_agg_plain(*args, **kw)
-        max_slots = [j for j, op in enumerate(body.ops) if op == "max"]
-        err = compare(torch, got, want, f"join_probe_agg[{mode}]",
-                      max_slots if groups else ())
-        (_, pcols, pvalid, n, keys, perm, bmask, bcols, scal) = args
-        search = n * math.ceil(math.log2(max(2, keys.numel())))
-        ops = n * body_ops(body.src) + search
-        b, by = bound_ms(nbytes(list(pcols) + list(bcols)
-                                + [pvalid, keys, perm, bmask, scal, got]),
-                         ops)
-        records.append(dict(
-            name=f"join_probe_agg[{mode}]", route="cuda",
-            source="src/repro_torch/kernels/csrc/join_probe.cuh",
-            replaces=("src/repro/kernels/join_probe/kernel.py:193"
-                      if mode == "keyless" else
-                      "src/repro/kernels/join_probe/kernel.py:276"),
-            shape=(f"{qname}: {n} probe rows x {len(pcols)} cols, "
-                   f"build {keys.numel()} rows x {len(bcols)} cols"
-                   + (f", G={groups}" if groups else "")),
-            max_abs_err=err,
-            ms=cuda_ms(torch, lambda: JP.join_probe_agg(*args, **kw)),
-            plain_ms=cuda_ms(torch,
-                             lambda: JP.join_probe_agg_plain(*args, **kw)),
-            bound_ms=b, bound_by=by, library_ms=None))
+        meta = kw["meta"]
+        check(meta is not None and meta[0].item() == 1
+              and meta[2].item() == 1,
+              f"{qname}: the probe's index is not dense and identity")
+        records.append(probe_record(torch, JP, args, kw, qname, mode))
+    # q14's build side cut to every other part and shuffled: gapped and
+    # not identity, so the kernel binary-searches it and reads perm
+    args, kw = capture_args(torch, ctx, Q.q14(ctx), JP, "join_probe_agg")
+    gapped, meta = gapped_build(torch, ENG, args, 16)
+    check(meta.tolist() == [0, 0, 0], f"gapped index meta {meta.tolist()}")
+    records.append(probe_record(torch, JP, gapped, {**kw, "meta": meta},
+                                "gapped q14", "keyless"))
     torch.cuda.synchronize()
     for r in records:
         log("[kernel] " + json.dumps(r))
     return records
+
+
+#: join_probe_agg records of phase 3: (query, accumulation)
+PROBE_RECORDS = (("q14", "keyless"), ("q19", "keyless"), ("q5", "shared"),
+                 ("q3", "global"))
+#: the single-column TPC-H primary keys: each index must be dense and
+#: identity (the kernel computes the position and skips perm)
+PRIMARY_KEYS = (("supplier", "s_suppkey"), ("part", "p_partkey"),
+                ("customer", "c_custkey"), ("orders", "o_orderkey"),
+                ("nation", "n_nationkey"))
+
+
+def index_routes(torch, ctx, FlareContext, Q, JP, col, sum_) -> None:
+    """The index facts that pick the probe's route: every single-column
+    primary-key index dense and identity; partsupp's composite key (at SF
+    0.01: at SF 10 it leaves the int32 key range and is not indexed) not
+    dense, and a join on it fires join-probe, launches the kernel (the
+    search route) and equals the generic lowering."""
+    for tname, key in PRIMARY_KEYS:
+        tbl = ctx.catalog.table(tname)
+        meta = ctx.cache.get_index(tbl, (key,)).meta.tolist()
+        check(meta == [1, int(np.asarray(tbl[key]).min()), 1],
+              f"{tname}.{key} index meta {meta}: not dense and identity")
+    small = FlareContext(device="cuda")
+    Q.register_tpch(small, sf=0.01, seed=0)
+    df = small.table("lineitem").join(
+        small.table("partsupp"), on=["l_partkey", "l_suppkey"],
+        right_on=["ps_partkey", "ps_suppkey"]).agg(
+        sum_(col("l_quantity") * col("ps_supplycost"), "cost"),
+        sum_(col("l_quantity"), "qty"))
+    lowered = df.lower(engine="compiled", native=True)
+    fired = lowered.dispatch_report().fired_patterns()
+    check(fired == ["join-probe"], f"composite-key join fired {fired}")
+    args, kw = capture_args(torch, small, df, JP, "join_probe_agg")
+    meta = kw["meta"].tolist()
+    check(meta[0] == 0, f"partsupp composite index meta {meta}: dense")
+    before = JP.launches
+    got = lowered.compile()()
+    torch.cuda.synchronize()
+    check(JP.launches == before + 1, "the composite-key probe did not "
+          "launch the kernel")
+    assert_close(got, df.lower(engine="compiled").compile()(),
+                 "composite-key join")
+    compare(torch, JP.join_probe_agg(*args, **kw),
+            JP.join_probe_agg_plain(*args, **kw), "composite-key probe")
+    log(f"[kernel] index routes: {len(PRIMARY_KEYS)} primary-key indexes "
+        f"dense and identity; partsupp's composite key (meta {meta}) by "
+        f"search, equal to the generic lowering")
+
+
+def gapped_build(torch, ENG, args, seed: int):
+    """q14's build side cut to every other part, in a shuffled order: a
+    table whose keys are gapped (not dense) and not stored sorted (not
+    identity), with its own sorted index.  Returns the probe's arguments
+    over it and the index's meta."""
+    (body, pcols, pvalid, n, keys, perm, bmask, bcols, scal) = args
+    dev = keys.device
+    key_of_row = torch.empty_like(keys)
+    key_of_row[perm.long()] = keys
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sel = torch.arange(0, keys.numel(), 2, device=dev)
+    rows = sel[torch.randperm(sel.numel(), generator=g, device=dev)]
+    tkeys = key_of_row[rows]
+    keys_g, perm_g = torch.sort(tkeys, stable=True)
+    meta = ENG.index_meta(tkeys.cpu().numpy().astype(np.int64), True)
+    gapped = (body, pcols, pvalid, n, keys_g, perm_g.to(torch.int32),
+              None if bmask is None else bmask[rows].contiguous(),
+              [b[rows].contiguous() for b in bcols], scal)
+    return gapped, torch.tensor(meta, dtype=torch.int32, device=dev)
+
+
+def sectors(torch, sel, size: int) -> int:
+    """32-byte sectors of a column of ``size``-byte elements that hold at
+    least one row selected by the bool mask ``sel``."""
+    rows = 32 // size
+    pad = torch.zeros(-sel.numel() % rows, dtype=torch.bool,
+                      device=sel.device)
+    return int(torch.cat([sel, pad]).view(-1, rows).any(1).sum())
+
+
+def needed_bytes(torch, args, meta, got) -> int:
+    """Bytes a probe must move: the mask; the 32-byte sectors of the key
+    columns (``body.key_cols``) that hold a valid row, and of the other
+    probe columns that hold a matched row (flare_row reads them for
+    matched rows only); on an index that is not dense (``meta``), the
+    sectors of the sorted keys at the valid rows' positions (the search's
+    last step), and on one that is not identity, those of perm at the
+    hits' positions; at each distinct build row a valid row's key hits,
+    its mask byte and -- where it matches -- its payload; the output."""
+    (body, pcols, pvalid, n, keys, perm, bmask, bcols, scal) = args
+    dense, _, identity = meta.tolist()
+    valid = pvalid if pvalid is not None else torch.ones(
+        n, dtype=torch.bool, device=scal.device)
+    kb = keys.float()
+    kp = body.probe_key([c.float() for c in pcols])
+    pos = torch.searchsorted(kb, kp).clamp_(max=kb.shape[0] - 1)
+    hit = (kb[pos] == kp) & valid
+    row = perm[pos].long()
+    matched = hit if bmask is None else hit & bmask[row]
+    check(len(body.key_cols) > 0, "the probe body names no key column")
+    total = n if pvalid is not None else 0
+    for j, c in enumerate(pcols):
+        total += 32 * sectors(torch, valid if j in body.key_cols
+                              else matched, c.element_size())
+    if not dense:
+        total += 32 * torch.unique(pos[valid] // 8).numel()
+    if not identity:
+        total += 32 * torch.unique(pos[hit] // 8).numel()
+    rows = torch.unique(row[hit])
+    if bmask is not None:
+        total += rows.numel()
+        rows = rows[bmask[rows]]
+    total += rows.numel() * sum(b.element_size() for b in bcols)
+    return total + got.numel() * got.element_size()
+
+
+def probe_record(torch, JP, args, kw, qname: str, mode: str) -> dict:
+    """One join_probe_agg record: the kernel against plain; for keyless
+    fragments the dense and search routes bit-identical; event, device
+    and plain times; the bound of the needed bytes and the all-rows
+    bound (every probe and build column read in full)."""
+    body = args[0]
+    groups = kw.get("num_groups")
+    check(JP.accum_mode(body.n_out, groups) == mode,
+          f"{qname}: expected {mode} accumulation")
+    search_kw = {**kw, "meta": torch.zeros_like(kw["meta"])}
+    got = JP.join_probe_agg(*args, **kw)
+    want = JP.join_probe_agg_plain(*args, **kw)
+    max_slots = [j for j, op in enumerate(body.ops) if op == "max"]
+    err = compare(torch, got, want, f"join_probe_agg[{qname}]",
+                  max_slots if groups else ())
+    searched = JP.join_probe_agg(*args, **search_kw)
+    if mode == "keyless":
+        check(torch.equal(got, searched), f"join_probe_agg[{qname}]: the "
+              f"dense and search routes differ: {got} vs {searched}")
+    else:
+        compare(torch, searched, want, f"join_probe_agg[{qname}] search",
+                max_slots)
+    (_, pcols, pvalid, n, keys, perm, bmask, bcols, scal) = args
+    search = n * math.ceil(math.log2(max(2, keys.numel())))
+    ops = n * body_ops(body.src) + search
+    all_rows, by_all = bound_ms(nbytes(list(pcols) + list(bcols) + [
+        pvalid, keys, perm, bmask, scal, got]), ops)
+    valid_rows = n if pvalid is None else int(pvalid.sum())
+    b, by = bound_ms(needed_bytes(torch, args, kw["meta"], got),
+                     valid_rows * body_ops(body.src))
+    reps = JP.shared_replicas(body.n_out, groups) if mode == "shared" else 1
+    meta = kw["meta"].tolist()
+    return dict(
+        name=f"join_probe_agg[{qname} {mode}]", route="cuda",
+        source="src/repro_torch/kernels/csrc/join_probe.cuh",
+        replaces=("src/repro/kernels/join_probe/kernel.py:193"
+                  if mode == "keyless" else
+                  "src/repro/kernels/join_probe/kernel.py:276"),
+        shape=(f"{qname}: {n} probe rows ({valid_rows} valid) x "
+               f"{len(pcols)} cols, build {keys.numel()} rows x "
+               f"{len(bcols)} cols" + (f", G={groups}" if groups else "")),
+        index_meta=meta, reps=reps,
+        resources=JP.resources(body, groups), max_abs_err=err,
+        ms=cuda_ms(torch, lambda: JP.join_probe_agg(*args, **kw)),
+        device_ms=graph_ms(torch, lambda: JP.join_probe_agg(*args, **kw)),
+        search_device_ms=graph_ms(
+            torch, lambda: JP.join_probe_agg(*args, **search_kw)),
+        plain_ms=cuda_ms(torch,
+                         lambda: JP.join_probe_agg_plain(*args, **kw)),
+        bound_ms=b, bound_by=by, bound_all_rows_ms=all_rows,
+        bound_all_rows_by=by_all, library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -538,27 +816,24 @@ def device_breakdown(torch, ctx, Q) -> dict:
     """Phase 4b: one profiled steady-state run per query (torch.profiler,
     CUPTI): device time, its share of the run's wall time, and the
     kernels that take most of it."""
-    from torch.profiler import ProfilerActivity, profile
-
     out = {}
     for name, build in Q.QUERIES.items():
         compiled = build(ctx).lower(engine="compiled", native=True).compile()
         compiled.result()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            compiled.result()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if getattr(e, "device_type", None) is not None
-                   and "CUDA" in str(e.device_type)]
+        kernels, wall, names = profiled(torch, compiled.result)
         dev = sum(e.self_device_time_total for e in kernels) / 1e3
         top = sorted(kernels, key=lambda e: e.self_device_time_total,
                      reverse=True)[:4]
+        # the same run profiled as earlier versions did (no warm step), whose
+        # busy shares are not comparable with the warmed step's
+        cold, cold_wall, cold_names = profiled_cold(torch, compiled.result)
+        cold_dev = sum(e.self_device_time_total for e in cold) / 1e3
         out[name] = {"wall_ms": wall, "device_ms": dev,
                      "device_busy_share": dev / wall if wall else None,
+                     "cold_wall_ms": cold_wall, "cold_device_ms": cold_dev,
+                     "cold_busy_share": (cold_dev / cold_wall
+                                         if cold_wall else None),
+                     "events": len(names), "cold_events": len(cold_names),
                      "top": [[e.key[:60], e.self_device_time_total / 1e3,
                               e.count] for e in top]}
         log(f"[profile] {json.dumps({'query': name, **out[name]})}")
@@ -1042,13 +1317,17 @@ def lm_main_path(torch, Model, serve_llm, FL, DA, cfg, params, tokens,
     return out
 
 
+#: profiles of phase 7b's decode steps of each kind, warmed and cold (a
+#: profile can miss device events: the launch check reads the majority)
+DECODE_PROFILES = 4
+
+
 def lm_profile(torch, Model, serve_llm, DA, cfg, params, tokens) -> dict:
     """Phase 7b: one profiled forward and four profiled decode steps:
     device time, busy share and the kernels that take most of it; for
-    decode also the decode kernels' launches against the wrapper's
-    calls."""
-    from torch.profiler import ProfilerActivity, profile
-
+    decode, from :data:`DECODE_PROFILES` warmed and as many cold profiles
+    of the steps, also the decode kernels' launches against the wrapper's
+    calls and the events each profile missed."""
     from repro_torch.models import param as PM
 
     model = Model(cfg)
@@ -1067,18 +1346,18 @@ def lm_profile(torch, Model, serve_llm, DA, cfg, params, tokens) -> dict:
     out = {}
     for name, fn in runs.items():
         fn()
-        torch.cuda.synchronize()
-        calls = DA.launches
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+        counted = {}
+
+        def recorded():
+            before = DA.launches
             fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        calls = DA.launches - calls
-        kernels = [e for e in prof.key_averages()
-                   if getattr(e, "device_type", None) is not None
-                   and "CUDA" in str(e.device_type)]
+            counted["calls"] = DA.launches - before
+
+        decode = name.startswith("decode")
+        n_prof = DECODE_PROFILES if decode else 1
+        warmed = [profiled(torch, recorded, warm=fn) for _ in range(n_prof)]
+        kernels, wall, _ = max(warmed, key=lambda r: len(r[2]))
+        calls = counted["calls"]
         dev = sum(e.self_device_time_total for e in kernels) / 1e3
         top = sorted(kernels, key=lambda e: e.self_device_time_total,
                      reverse=True)[:6]
@@ -1086,18 +1365,34 @@ def lm_profile(torch, Model, serve_llm, DA, cfg, params, tokens) -> dict:
                      "device_busy_share": dev / wall if wall else None,
                      "top": [[e.key[:70], e.self_device_time_total / 1e3,
                               e.count] for e in top]}
-        if name.startswith("decode"):
+        if decode:
+            cold = [profiled_cold(torch, recorded) for _ in range(n_prof)]
+            seen = [[[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                     for e in r[0] if "flare_decode" in e.key]
+                    for r in warmed + cold]
+            counts = [sum(d[2] for d in dec) for dec in seen]
             # one decode launch per wrapper call (a layer of a step): the
-            # kernel, no fold pass
-            dec = [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                   for e in kernels if "flare_decode" in e.key]
-            check(calls == 4 * cfg.n_layers and len(dec) == 1
-                  and "flare_decode_kernel" in dec[0][0]
-                  and dec[0][2] == calls,
-                  f"decode x4 ran the decode kernels {dec} in {calls} "
+            # kernel, no fold pass.  A profile can miss launches, and may
+            # hold an event that is not the steps', so more than half of
+            # them must show one launch per call.
+            check(calls == 4 * cfg.n_layers
+                  and counts.count(calls) > len(counts) // 2
+                  and all(len(dec) <= 1 and all(
+                      "flare_decode_kernel" in d[0] for d in dec)
+                          for dec in seen),
+                  f"decode x4 ran the decode kernels {seen} in {calls} "
                   f"wrapper calls, not one kernel once a call")
-            out[name]["decode_attention"] = dec[0]
+            out[name]["decode_attention"] = seen[counts.index(calls)][0]
             out[name]["decode_calls"] = calls
+            # what each profile missed against the fullest of all
+            ref = max((r[2] for r in warmed + cold), key=len)
+            out[name]["profiles"] = {
+                kind: [{"events": len(r[2]), "decode_launches": c,
+                        "n_lost": len(lost_events(ref, r[2])),
+                        "lost": lost_events(ref, r[2])[:4],
+                        "wall_ms": r[1]} for r, c in zip(rs, cs)]
+                for kind, rs, cs in (("warmed", warmed, counts[:n_prof]),
+                                     ("cold", cold, counts[n_prof:]))}
         log(f"[profile] {json.dumps({'lm': name, **out[name]})}")
     del caches
     return out
@@ -1362,23 +1657,32 @@ def q6_record(torch, FQ, cols, launches: int) -> dict:
 
 def segsum_record(torch, SS, values, codes, groups: int, label: str,
                   launches: int) -> dict:
+    from repro_torch.kernels.segmented_reduce import kernel as SR
+
     got = SS.segmented_sum(values, codes, groups)
     want = SS.segmented_sum_plain(values, codes, groups)
     err = compare(torch, got, want, label)
     n = values.numel()
     # per row: two range comparisons and one add
     b, by = bound_ms(nbytes([values, codes, got]), 3 * n)
+    lib = lambda: torch.bincount(codes, weights=values,  # noqa: E731
+                                 minlength=groups)
+    # bincount reads the codes' min and max on the host before it
+    # launches (no graph can hold it): its kernels' device time
+    lib_device, lib_events = profiled_device_ms(torch, lib)
     return dict(
         name=label, route="cuda",
         source="src/repro_torch/kernels/csrc/segmented_sum.cuh",
         replaces="src/repro/kernels/segmented_reduce/kernel.py:73",
         shape=f"{n} rows, G={groups}", launches=launches, max_abs_err=err,
+        reps=SR.replicas(1, groups),
         ms=cuda_ms(torch, lambda: SS.segmented_sum(values, codes, groups)),
+        device_ms=graph_ms(torch, lambda: SS.segmented_sum(values, codes,
+                                                           groups)),
         plain_ms=cuda_ms(torch, lambda: SS.segmented_sum_plain(
             values, codes, groups), runs=5, warmup=1),
-        bound_ms=b, bound_by=by,
-        library_ms=cuda_ms(torch, lambda: torch.bincount(
-            codes, weights=values, minlength=groups)))
+        bound_ms=b, bound_by=by, library_ms=cuda_ms(torch, lib),
+        library_device_ms=lib_device, library_device_events=lib_events)
 
 
 def direct_csv(torch, FlareContext, Q, io) -> dict:

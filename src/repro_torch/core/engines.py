@@ -49,7 +49,7 @@ _HOST_OF = {torch.int32: np.int32, torch.float32: np.float32,
 class NotYetPortedError(NotImplementedError):
     """A plan node whose execution waits for a later slice of the port:
     ``MapBatches`` and ``IterativeKernel`` (the heterogeneous pipelines,
-    ROADMAP Queue 1 item 5)."""
+    ROADMAP Queue 1 item 1)."""
 
 
 def refuse_unported(p: P.Plan, engine: str) -> None:
@@ -59,7 +59,7 @@ def refuse_unported(p: P.Plan, engine: str) -> None:
         raise NotYetPortedError(
             f"the {engine} engine cannot run {type(p).__name__} plans yet: "
             f"the heterogeneous pipelines are not yet ported to "
-            f"repro_torch (ROADMAP Queue 1 item 5)")
+            f"repro_torch (ROADMAP Queue 1 item 1)")
     for c in p.children():
         refuse_unported(c, engine)
 
@@ -70,14 +70,36 @@ class UnindexableKeyError(ValueError):
     joins over them keep their in-program lowering."""
 
 
+#: Largest |key| of a dense index: the probe kernel compares keys in f32,
+#: which holds every integer up to 2^24 exactly.
+DENSE_KEY_LIMIT = 1 << 24
+
+
+def index_meta(kb: np.ndarray, unique: bool) -> Tuple[int, int, int]:
+    """``(dense, base, identity)`` of combined int64 keys ``kb`` in table
+    order.  *dense*: the keys are unique and fill ``[base, base + n)``
+    (within the f32-exact range), so a probe's position is computed, not
+    searched; *identity*: the keys are already sorted, so the index's
+    permutation is ``arange(n)``."""
+    if not len(kb):
+        return 0, 0, 1
+    lo, hi = int(kb.min()), int(kb.max())
+    dense = (unique and hi - lo == len(kb) - 1
+             and -DENSE_KEY_LIMIT <= lo and hi <= DENSE_KEY_LIMIT)
+    identity = bool((kb[1:] >= kb[:-1]).all())
+    return int(dense), lo if dense else 0, int(identity)
+
+
 @dataclasses.dataclass
 class JoinIndex:
     """A build-side join index: the stable sort permutation and the
-    sorted combined keys of a base table's key columns, on the device."""
+    sorted combined keys of a base table's key columns, on the device,
+    and what the build learned about them (:func:`index_meta`)."""
 
     perm: torch.Tensor    # int32 [n]: stable argsort of the combined keys
     keys: torch.Tensor    # int32 [n]: combined keys, sorted
     unique: bool          # verified at build: no duplicate combined keys
+    meta: torch.Tensor    # int32 [3]: dense, base, identity
 
 
 class IndexCache:
@@ -140,7 +162,9 @@ class IndexCache:
             raise ValueError(
                 f"column(s) {list(key_cols)} are declared unique "
                 f"(Field.unique) but hold duplicate keys")
-        return JoinIndex(perm.to(torch.int32), keys, unique)
+        meta = torch.tensor(index_meta(kb, unique), dtype=torch.int32,
+                            device=self.device)
+        return JoinIndex(perm.to(torch.int32), keys, unique, meta)
 
     def __len__(self) -> int:
         return len(self._entries)

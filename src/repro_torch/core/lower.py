@@ -443,7 +443,7 @@ def join_index_plan(p: P.Plan, catalog: P.Catalog
 
 def index_stream_key(p: P.Join) -> Tuple[str, int]:
     """The ``scans``-dict key under which a join's cached index
-    (perm, sorted keys) rides into the program."""
+    (perm, sorted keys, meta) rides into the program."""
     return ("joinidx", id(p))
 
 
@@ -465,7 +465,7 @@ def _join_info(p: P.Join, left: StaticInfo, right: StaticInfo
 
 def _lower_join(p: P.Join, left: Stream, right: Stream,
                 catalog: P.Catalog,
-                jindex: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                jindex: Optional[Tuple[torch.Tensor, ...]] = None
                 ) -> Stream:
     strategy = p.strategy or "sorted"
     ldoms = [left.info.cols[k].group_domain or _I32_MAX for k in p.left_on]
@@ -484,7 +484,7 @@ def _lower_join(p: P.Join, left: Stream, right: Stream,
         # once at preload/first use.  It covers the unfiltered base
         # table; a filtered build side is validated after the probe
         # against the matched row's mask (exact: keys are unique).
-        perm, kb_sorted = jindex
+        perm, kb_sorted, _meta = jindex
         validate_mask = right.mask
     else:
         kb = combine_keys([right.cols[k] for k in p.right_on], doms)
@@ -820,10 +820,11 @@ def build_callable(p: P.Plan, catalog: P.Catalog,
 
     Returns (fn, arg_layout, index_layout, out_info) where arg_layout
     lists (scan_node_id, column_names) in argument order.  After the
-    scan columns ``fn`` takes one (perm, sorted-keys) int32 pair per
-    entry of ``index_layout`` -- the joins whose build side is served by
-    the cached base-table index (``repro_torch.core.engines.IndexCache``)
-    -- and then one 0-d tensor per ``param_specs`` entry, in spec order.
+    scan columns ``fn`` takes one (perm, sorted keys, meta) int32 triple
+    per entry of ``index_layout`` -- the joins whose build side is served
+    by the cached base-table index (``repro_torch.core.engines.
+    IndexCache``) -- and then one 0-d tensor per ``param_specs`` entry,
+    in spec order.
     Setting ``p._join_index_disabled`` keeps every join on its
     in-program sort.  ``fn`` returns ``(out_cols, mask)``.
     """
@@ -860,9 +861,7 @@ def build_callable(p: P.Plan, catalog: P.Catalog,
                 statics[id(s)].n_rows)
             scans[id(s)] = Stream(cols, None, static, device)
         for jid, _spec in index_items:
-            perm = next(it)
-            keys = next(it)
-            scans[("joinidx", jid)] = (perm, keys)
+            scans[("joinidx", jid)] = (next(it), next(it), next(it))
         env = {spec.name: next(it) for spec in param_specs}
         stream = lower_node(p, catalog, scans, env or None)
         out_cols = {n: as_column(stream.cols[n], stream) for n in out_names}

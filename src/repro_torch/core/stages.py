@@ -135,7 +135,7 @@ class _WholeQueryArtifact:
     fn: Callable
     # (table_name, column_names) per scan, in argument order
     layout: Tuple[Tuple[str, Tuple[str, ...]], ...]
-    # cached build-side join indexes: one (perm, keys) argument pair each
+    # cached build-side join indexes: (perm, keys, meta) arguments each
     index_layout: Tuple[L.JoinIndexSpec, ...]
     param_specs: Tuple[E.Param, ...]
     out_info: L.StaticInfo
@@ -147,7 +147,7 @@ class _WholeQueryArtifact:
 def _marshal_args(layout, index_layout, catalog: P.Catalog,
                   device_cache: ENG.DeviceCache) -> List[torch.Tensor]:
     """The binding-independent arguments: device-resident scan columns
-    (layout order), then the join-index (perm, keys) pairs."""
+    (layout order), then each join index's (perm, keys, meta)."""
     args: List[torch.Tensor] = []
     for tname, names in layout:
         tbl = catalog.table(tname)
@@ -156,8 +156,7 @@ def _marshal_args(layout, index_layout, catalog: P.Catalog,
     for spec in index_layout:
         idx = device_cache.get_index(catalog.table(spec.table),
                                      spec.key_cols, spec.doms)
-        args.append(idx.perm)
-        args.append(idx.keys)
+        args += [idx.perm, idx.keys, idx.meta]
     return args
 
 
@@ -583,6 +582,10 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
     elif native and engine != "compiled-native":
         raise ValueError(f"native=True requires the 'compiled' engine, got "
                          f"{engine!r}")
+    if engine in ("compiled", "compiled-native"):
+        # the other engines refuse when they run; the whole-query engine
+        # would otherwise fail in the lowering with a bare TypeError
+        ENG.refuse_unported(p, engine)
     if engine == "compiled-native":
         from repro_torch.native import dispatch as ND
         p, dispatch_report = ND.rewrite_plan(p, catalog, device_cache.device,

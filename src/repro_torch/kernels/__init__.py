@@ -69,7 +69,9 @@ class Body:
     ``probe_key``) compute the same thing over whole columns for the
     plain version.  ``ops``/``fills`` give each accumulator slot its
     reduction ("sum" or "max") and neutral element; ``col_dtypes`` and
-    ``build_dtypes`` the device dtype each streamed column must have.
+    ``build_dtypes`` the device dtype each streamed column must have;
+    ``key_cols`` the probe columns (by index) that ``flare_probe_key``
+    reads.
     Query parameters are never in ``src``: they arrive in the ``scal``
     vector, so every binding of a template shares one unit.
     """
@@ -81,6 +83,7 @@ class Body:
     col_dtypes: Tuple[torch.dtype, ...]
     build_dtypes: Tuple[torch.dtype, ...] = ()
     probe_key: Optional[Callable] = None
+    key_cols: Tuple[int, ...] = ()
 
     @property
     def n_out(self) -> int:

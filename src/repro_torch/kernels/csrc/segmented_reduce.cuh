@@ -4,11 +4,11 @@
 // segmented_reduce/kernel.py), which scatters through a one-hot matmul on
 // the TPU's matrix unit.  Here each block keeps `reps` copies of the
 // [FLARE_N_OUT, G] accumulator in shared memory (flare_grouped.cuh: one per
-// thread when they fit, updated without atomics; else one per warp, with
-// shared atomics); blocks write per-block partials that flare_group_final
-// folds.  Bound by the streamed column bytes; what the design spends
-// beyond that is shared-memory update throughput, which the copies spread
-// over more addresses when G is small.  Codes outside
+// thread when they fit, updated without atomics; else up to 32 lane
+// copies, with shared atomics); blocks write per-block partials that
+// flare_group_final folds.  Bound by the streamed column bytes; what the
+// design spends beyond that is shared-memory update throughput, which the
+// copies spread over more addresses when G is small.  Codes outside
 // [0, G) contribute nothing, as they match no one-hot column in the
 // reference; rows the predicate drops skip the atomics (they would add 0
 // or the max fill).

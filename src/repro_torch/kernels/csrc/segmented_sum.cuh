@@ -5,9 +5,11 @@
 // matmul on the TPU's matrix unit.  On the H100 it is a histogram in
 // shared memory: flare_grouped.cuh's accumulator with one output row
 // (FLARE_N_OUT 1, a sum), `reps` copies per block -- one per thread when
-// they fit the 48 KB budget (G <= 48), updated without atomics; else one
-// per warp, updated with shared atomics (G = 512: 8 copies of 2 KB) --
-// and per-block partials that flare_group_final folds in block order.
+// they fit the 48 KB budget (G <= 48), updated without atomics; else lane
+// copies, updated with shared atomics (G = 512: 16 copies of 2 KB, lane l
+// on copy l % 16, so a warp's 32 random codes meet at most two to a bank;
+// one copy per warp put them on 4 banks) -- and per-block partials that
+// flare_group_final folds in block order.
 //
 // Bound on the H100 by bytes: 8 per row (f32 value, int32 code) over
 // 3.35 TB/s.  Values and codes stream with 16-byte loads (float4, int4);

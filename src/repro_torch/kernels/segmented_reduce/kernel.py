@@ -6,8 +6,9 @@ into a one-hot matmul on the TPU's matrix unit.  On the H100 the scatter
 stays a scatter, into shared memory: each block holds copies of the
 ``[n_out, G]`` accumulator (initialised to 0, or ``fills[j]`` for "max"
 slots) -- one per thread, updated without atomics, when they fit, else
-one per warp, updated with shared atomics -- and flushes a per-block
-partial that a second pass folds over blocks
+up to 32 lane copies (lane ``l`` updates copy ``l % reps``: at 32 copies
+the lanes of a warp hit distinct banks), with shared atomics -- and
+flushes a per-block partial that a second pass folds over blocks
 (``csrc/segmented_reduce.cuh``).
 
 Bound on the H100: the streamed column bytes plus the int32 codes over
@@ -50,13 +51,20 @@ def fits_shared(n_out: int, num_groups: int) -> bool:
     return n_out * num_groups * 4 <= SMEM_BUDGET_BYTES
 
 
-def replicas(n_out: int, num_groups: int) -> int:
+def replicas(n_out: int, num_groups: int,
+             budget: int = SMEM_BUDGET_BYTES) -> int:
     """Accumulator copies per block: one per thread (no atomics) when
-    that many fit the shared-memory budget, else up to one per warp."""
+    that many fit ``budget`` bytes, else the most lane copies that fit --
+    a power of two up to 32, lane ``l`` of every warp updating copy
+    ``l % reps`` with shared atomics (csrc/flare_grouped.cuh) -- and at
+    least one."""
     per_copy = n_out * num_groups * 4
-    if THREADS * per_copy <= SMEM_BUDGET_BYTES:
+    if THREADS * per_copy <= budget:
         return THREADS
-    return max(1, min(THREADS // 32, SMEM_BUDGET_BYTES // per_copy))
+    reps = 32
+    while reps > 1 and reps * per_copy > budget:
+        reps //= 2
+    return reps
 
 
 @functools.lru_cache(maxsize=256)

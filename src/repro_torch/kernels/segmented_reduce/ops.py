@@ -6,9 +6,10 @@ Replaces the Pallas kernel ``segmented_sum`` of
 H100 it is a histogram in shared memory (``csrc/segmented_sum.cuh``, a
 fixed unit over ``csrc/flare_grouped.cuh`` with one output row): one
 accumulator copy per thread when the copies fit
-:data:`repro_torch.kernels.SMEM_BUDGET_BYTES` (G <= 48), else one per
-warp with shared atomics.  Bound on the H100: 8 bytes per row (f32 value,
-int32 code) over 3.35 TB/s.
+:data:`repro_torch.kernels.SMEM_BUDGET_BYTES` (G <= 48), else lane
+copies with shared atomics (G 512: 16 copies of 2 KB, lanes l and l + 16
+sharing one, so at most two lanes of a warp share a bank).  Bound on the
+H100: 8 bytes per row (f32 value, int32 code) over 3.35 TB/s.
 
 The routing is the reference's own: a group domain above
 :data:`MAX_GROUPS` takes the scatter path (the plain version, on the

@@ -956,7 +956,8 @@ def _probe_body(comp: ExprCompiler, preds, vals, keys, lkeys, key_names,
     return Body(src="\n".join(src), rows=rows, ops=ops, fills=fills,
                 col_dtypes=tuple(comp.dtype(c) for c in probe_cols),
                 build_dtypes=tuple(comp.dtype(c) for c in build_cols),
-                probe_key=probe_key)
+                probe_key=probe_key,
+                key_cols=tuple(probe_cols.index(k) for k in key_names))
 
 
 def _probe_eligibility(frag: R.Fragment,
@@ -991,14 +992,14 @@ class _ProbeEmitter:
             raise RuntimeError(
                 "join-probe fragment lowered without its cached index; "
                 "the engine must run lower.build_callable")
-        perm, keys = jidx
+        perm, keys, meta = jidx
         dev = left.device
         scal = _scal(ana.param_names, params, dev)
         out = JP.join_probe_agg(
             ana.body, _columns(left, ana.probe_cols, ana.body.col_dtypes),
             _mask(left), left.n, keys, perm, _mask(right),
             _columns(right, ana.build_cols, ana.body.build_dtypes), scal,
-            num_groups=ana.domain)
+            num_groups=ana.domain, meta=meta)
         if ana.domain is None:
             return _keyless_outputs(frag, ana.plan_, ana.cnt_slot, out,
                                     self.out_info, dev)

@@ -177,7 +177,7 @@ def test_unported_plan_nodes_raise_a_typed_error(ctxs, engine):
     for plan in (train, P.Aggregate(batches, (), (sum_(col("q2"), "s"),))):
         compiled = S.lower_plan(plan, pc.catalog, pc.cache, pc.compile_cache,
                                 engine=engine).compile()
-        with pytest.raises(ENG.NotYetPortedError, match="Queue 1 item 5"):
+        with pytest.raises(ENG.NotYetPortedError, match="Queue 1 item 1"):
             compiled()
 
 

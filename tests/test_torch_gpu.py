@@ -10,6 +10,10 @@ the same query on the same card (rtol 1e-3: summation order differs).
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed; ``expr_queries`` is also used by the CPU tests.
 """
+import pathlib
+import sys
+
+import numpy as np
 import pytest
 import torch
 
@@ -493,3 +497,205 @@ def test_q6_and_group_sum_wrappers_refuse_what_the_kernels_do_not_take(card):
         SS.segmented_sum(x[::2], d[::2], 6)
     with pytest.raises(KernelBudgetError):
         SS.segmented_sum(x, d.cpu(), 6)
+
+
+# ---------------------------------------------------------------------------
+# join_probe_agg: the dense and search routes, the grouped modes
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import engines as ENG  # noqa: E402
+from repro_torch.kernels import Body  # noqa: E402
+from repro_torch.relational import table as PT  # noqa: E402
+
+#: kernel vs plain sums: the kernel adds in f32 per lane, block and (in
+#: global mode) by atomics in an order that changes from run to run; the
+#: plain version adds group sums in f64
+PROBE_RTOL, PROBE_ATOL = 1e-3, 1e-3
+
+
+def probe_call(ctx, qname, monkeypatch):
+    """The arguments of the one join_probe_agg call of ``qname``."""
+    calls = []
+    orig = JP.join_probe_agg
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(JP, "join_probe_agg", spy)
+    Q.QUERIES[qname](ctx).lower(native=True).compile()()
+    monkeypatch.undo()
+    assert len(calls) == 1, (qname, len(calls))
+    return calls[0]
+
+
+def assert_probe_close(got, want, body):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    for j, op in enumerate(body.ops):
+        if op == "max" and got.dim() == 2:
+            assert torch.equal(got[j], want[j])
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= PROBE_RTOL * want.double().abs() + PROBE_ATOL)
+                .all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qname", ["q14", "q19"])
+def test_probe_dense_and_search_routes_are_bit_identical(card_ctx, qname,
+                                                         monkeypatch):
+    args, kw = probe_call(card_ctx, qname, monkeypatch)
+    meta = kw["meta"]
+    assert kw.get("num_groups") is None
+    assert meta[0].item() == 1 and meta[2].item() == 1   # dense, identity
+    before = JP.launches
+    dense = JP.join_probe_agg(*args, **kw)
+    search = JP.join_probe_agg(*args, **{**kw, "meta": torch.zeros_like(
+        meta)})
+    no_meta = JP.join_probe_agg(*args, **{**kw, "meta": None})
+    torch.cuda.synchronize()
+    assert JP.launches == before + 3
+    assert torch.equal(dense, search) and torch.equal(dense, no_meta)
+    assert_probe_close(dense, JP.join_probe_agg_plain(*args, **kw), args[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qname,mode", [("q5", "shared"), ("q3", "global")])
+def test_probe_grouped_modes_match_plain(card_ctx, qname, mode, monkeypatch):
+    args, kw = probe_call(card_ctx, qname, monkeypatch)
+    body = args[0]
+    assert JP.accum_mode(body.n_out, kw["num_groups"]) == mode
+    want = JP.join_probe_agg_plain(*args, **kw)
+    for meta in (kw["meta"], None):
+        got = JP.join_probe_agg(*args, **{**kw, "meta": meta})
+        assert_probe_close(got, want, body)
+
+
+def chip_smoke():
+    """``chip_smoke.py`` at the repo's root, for its helpers."""
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke as CS
+    return CS
+
+
+@pytest.mark.gpu
+def test_gapped_index_takes_the_search_route_in_the_kernel(card_ctx,
+                                                           monkeypatch):
+    """Every other part of q14's build side, shuffled: the index is
+    neither dense nor identity, and the kernel (not the plain version)
+    probes it by search and reads perm."""
+    args, kw = probe_call(card_ctx, "q14", monkeypatch)
+    gapped, meta = chip_smoke().gapped_build(torch, ENG, args, 16)
+    assert meta.tolist() == [0, 0, 0]
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(JP, "join_probe_agg_plain", no_plain)
+    before = JP.launches
+    got = JP.join_probe_agg(*gapped, meta=meta)
+    torch.cuda.synchronize()
+    assert JP.launches == before + 1
+    monkeypatch.undo()
+    want = JP.join_probe_agg_plain(*gapped)
+    assert_probe_close(got, want, args[0])
+    full = JP.join_probe_agg_plain(*args)
+    assert float(want[1]) < float(full[1])   # the dropped parts add nothing
+
+
+#: A probe whose key is an f32 column, so that it can hold NaN, +-inf and
+#: fractions: sum(price * pay) and count over matched rows.
+EDGE_SRC = """
+__device__ __forceinline__ float flare_probe_key(
+    const FlareCols& pc, long long i) {
+  return flare_ld_f32(pc.p[0], i);
+}
+
+__device__ __forceinline__ bool flare_row(
+    const FlareCols& pc, const FlareCols& bc, long long i,
+    long long row, bool matched, const float* __restrict__ s,
+    float (&v)[FLARE_N_OUT], int* code) {
+  const float price = flare_ld_f32(pc.p[1], i);
+  const float pay = flare_ld_f32(bc.p[0], row);
+  v[0] = matched ? price * pay : 0.0f;
+  v[1] = matched ? 1.0f : 0.0f;
+  return matched;
+}
+"""
+
+
+def _edge_rows(pcols, bvals, matched, scal):
+    vals = [torch.where(matched, pcols[1] * bvals[0], 0.0),
+            matched.to(torch.float32)]
+    return matched, vals, None
+
+
+EDGE_BODY = Body(src=EDGE_SRC, rows=_edge_rows, ops=("sum", "sum"),
+                 fills=(0.0, 0.0),
+                 col_dtypes=(torch.float32, torch.float32),
+                 build_dtypes=(torch.float32,),
+                 probe_key=lambda pcols: pcols[0], key_cols=(0,))
+
+#: build keys of each index kind and the meta they must get
+EDGE_INDEXES = {
+    "dense identity, base -40": (lambda rng: np.arange(-40, 160),
+                                 [1, -40, 1]),
+    "dense shuffled": (lambda rng: rng.permutation(np.arange(1, 201)),
+                       [1, 1, 0]),
+    "gapped sorted": (lambda rng: 2 * np.arange(1, 201), [0, 0, 1]),
+    "gapped shuffled": (lambda rng: rng.permutation(2 * np.arange(1, 201)),
+                        [0, 0, 0]),
+}
+
+
+def _edge_keys(rng, lo, hi, n):
+    """Probe keys around ``[lo, hi]``: integers in and beyond the range,
+    fractions, far keys, NaN, +-inf and signed zeros."""
+    special = np.array([np.nan, -np.inf, np.inf, -0.0, 0.0, lo, hi, lo - 1,
+                        hi + 1, lo + 0.5, hi - 0.5, hi + 0.25, 1e9, -1e9,
+                        2.0 ** 24, -(2.0 ** 24)], np.float32)
+    kind = rng.integers(0, 3, n)
+    ints = rng.integers(lo - 8, hi + 9, n).astype(np.float32)
+    fracs = rng.uniform(lo - 8, hi + 8, n).astype(np.float32)
+    kp = np.where(kind == 0, ints, np.where(kind == 1, fracs,
+                                            special[np.arange(n) % 16]))
+    return kp.astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("index", list(EDGE_INDEXES))
+def test_probe_routes_on_edge_keys(card, index, masked):
+    """Each index kind (dense or not, identity or not) on f32 probe keys
+    with NaN, +-inf, fractions and keys out of range: the kernel with the
+    index's meta, with meta None (the search route, perm read) and the
+    plain version give the same sums bit for bit (dyadic values: every
+    partial sum exact); a build mask on the shuffled kinds."""
+    rng = np.random.default_rng(len(index) + masked)
+    make, want_meta = EDGE_INDEXES[index]
+    keys = make(rng).astype(np.int32)
+    idx = ENG.IndexCache(card).get(PT.Table.from_arrays({"k": keys}),
+                                   ("k",))
+    assert idx.meta.tolist() == want_meta
+    n, nb = 3 * JP.TILE_ROWS + 77, keys.size
+    kp = _edge_keys(rng, int(keys.min()), int(keys.max()), n)
+    price = rng.integers(0, 64, n).astype(np.float32) / 4
+    pay = rng.integers(0, 32, nb).astype(np.float32) / 8
+    pcols = [torch.from_numpy(kp).to(card), torch.from_numpy(price).to(card)]
+    pvalid = (torch.from_numpy(rng.random(n) < 0.7).to(card) if masked
+              else None)
+    bmask = (torch.from_numpy(rng.random(nb) < 0.8).to(card)
+             if "shuffled" in index else None)
+    args = (EDGE_BODY, pcols, pvalid, n, idx.keys, idx.perm, bmask,
+            [torch.from_numpy(pay).to(card)],
+            torch.zeros(1, device=card))
+    before = JP.launches
+    got = JP.join_probe_agg(*args, meta=idx.meta)
+    searched = JP.join_probe_agg(*args, meta=None)
+    torch.cuda.synchronize()
+    assert JP.launches == before + 2
+    want = JP.join_probe_agg_plain(*args)
+    assert torch.equal(got, searched), (got, searched)
+    assert torch.equal(got, want), (got, want)
+    assert 0 < float(want[1]) < n   # some rows hit, some miss
