@@ -93,7 +93,23 @@ Phases, in order; any failure exits non-zero:
    that saw the same events: it syncs with the host, so no graph holds
    it) and the accumulator's copies (``reps``); the direct-from-CSV
    row (lineitem at SF 0.1 through ``io.to_csv`` and
-   ``read_csv_compiled``, then compiled q6) against the preloaded q6.
+   ``read_csv_compiled``, then compiled q6) against the preloaded q6;
+9. the heterogeneous pipelines (paper Fig. 8 / 13), after phase 8 on the
+   same context: ``benchmarks/bench_ml.py``'s points table at 10 M rows
+   (d 8, seed 0, ``quality > 0.1``) through kmeans (k 4), logreg, gda, a
+   ``map_batches`` (torch ops) and a ``@udf`` select; each fused
+   (``compiled``) against staged (``stage``: the same iterations, fields
+   at rtol 1e-4) and ``compiled-native`` (its fired patterns printed),
+   host ms (median of 5), one profile of each (device ms, busy share,
+   device-to-host copies), the per-iteration bound; kmeans, logreg and
+   gda with tol 0 and a fixed ``max_iter`` against the volcano oracle on
+   the host, once (the reference tests' limits); ``group_by_reduce``
+   alone by both routes at k 4 to 64 (equal sums, CUDA-event ms); the
+   Fig. 8 shape on the SF 10 lineitem (shipped in 1995, a
+   ``map_batches`` log price, kmeans k 8 over four columns), fused
+   against staged.  Its lines are
+   tagged ``[hetero]``; it launches none of the seven kernels but the
+   one ``compiled-native`` fires on the ``map_batches`` aggregate.
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1775,6 +1791,268 @@ def engine_ladder(torch, ctx, Q, per_query, generic_ms, generic,
     log(f"[ladder] phase 8 took {time.perf_counter() - t0:.1f} s")
     return records
 
+# ---------------------------------------------------------------------------
+# phase 9: the heterogeneous pipelines (paper Fig. 8 / 13)
+# ---------------------------------------------------------------------------
+
+#: the points table: benchmarks/bench_ml.py's generator (4 Gaussian
+#: clusters, d 8, seed 0) at a card's size; its 20 000 rows are a CPU size.
+#: Under 2^24 rows per cluster, so f32 counts stay exact.
+POINTS_ROWS, POINTS_D = 10_000_000, 8
+#: compiled against the volcano oracle: the reference tests' limits
+#: (tests/test_heterogeneous.py), with tol 0 and a fixed max_iter
+ORACLE_TOL = {"kmeans": (1e-3, 1e-3), "logreg": (1e-4, 1e-5),
+              "gda": (1e-3, 1e-4)}
+ORACLE_ITERS = {"kmeans": 10, "logreg": 20}
+#: compiled (fused) against stage (staged): the same kernel on the card
+STAGED_RTOL, STAGED_ATOL = 1e-4, 1e-6
+
+
+def points_table(T, n: int, d: int = POINTS_D, seed: int = 0):
+    """``benchmarks/bench_ml.py``'s ``_features_table`` on the port."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 5, (4, d))
+    assign = rng.integers(0, 4, n)
+    x = centers[assign] + rng.normal(0, 1, (n, d))
+    data = {f"f{i}": x[:, i] for i in range(d)}
+    data["label"] = (assign % 2).astype(np.int32)
+    data["quality"] = rng.uniform(0, 1, n)
+    return T.Table.from_arrays(data)
+
+
+def value_fields(v) -> dict:
+    """A trained kernel's result (NamedTuple or dict) as name -> array."""
+    return dict(v._asdict()) if hasattr(v, "_asdict") else dict(v)
+
+
+def values_close(got, want, rtol: float, atol: float, what: str,
+                 padded_assignments: bool = False) -> float:
+    """Every field of two trained results within ``atol + rtol |want|``;
+    returns the largest abs difference.  Assignments of a padded
+    (compiled) against a compacted (volcano) run are not compared."""
+    err = 0.0
+    for k, w in value_fields(want).items():
+        if k == "assignments" and padded_assignments:
+            continue
+        a = np.asarray(value_fields(got)[k], np.float64)
+        b = np.asarray(w, np.float64)
+        check(a.shape == b.shape, f"{what}.{k}: shape {a.shape} vs {b.shape}")
+        check(bool(np.isfinite(a).all()), f"{what}.{k}: non-finite")
+        bad = np.abs(a - b) > atol + rtol * np.abs(b)
+        check(not bad.any(), f"{what}.{k}: {a[bad][:3]} vs {b[bad][:3]}")
+        if a.size:
+            err = max(err, float(np.abs(a - b).max()))
+    return err
+
+
+def fired(lowered) -> list:
+    rep = lowered.dispatch_report()
+    return rep.fired_patterns() if rep is not None else []
+
+
+def d2h_copies(names: list) -> int:
+    return sum("DtoH" in n for n in names)
+
+
+def pipeline_record(torch, name: str, df, rows: int, d: int) -> dict:
+    """One pipeline fused (``compiled``) and staged (``stage``) on the card:
+    equal results, host ms (median of 5), one profile of each, and the
+    fired patterns of ``compiled-native`` (whose result equals compiled)."""
+    fused = df.lower(engine="compiled").compile()
+    staged = df.lower(engine="stage").compile()
+    got, st = fused(), staged()
+    trained = not isinstance(got, dict)
+    if trained:
+        if "iters" in value_fields(got):
+            check(int(got.iters) == int(st.iters),
+                  f"{name}: fused {int(got.iters)} iterations, staged "
+                  f"{int(st.iters)}")
+        staged_err = values_close(st, got, STAGED_RTOL, STAGED_ATOL,
+                                  f"{name} staged vs fused")
+    else:
+        assert_close(st, got, f"{name} staged vs fused")
+        staged_err = None
+    native = df.lower(engine="compiled", native=True)
+    if trained:
+        values_close(native.compile()(), got, STAGED_RTOL, STAGED_ATOL,
+                     f"{name} native vs fused")
+    else:
+        assert_close(native.compile()(), got, f"{name} native vs fused")
+    fused_ms = host_ms(torch, fused.result)
+    staged_ms = host_ms(torch, staged.result)
+    events, wall, names = profiled(torch, fused.result)
+    dev = sum(e.self_device_time_total for e in events) / 1e3
+    s_events, s_wall, s_names = profiled(torch, staged.result)
+    s_dev = sum(e.self_device_time_total for e in s_events) / 1e3
+    # a trained result's iterations (gda: one closed-form pass); an
+    # iteration must read the [n, d] f32 matrix twice (the distances or
+    # the forward product, then the group sums or the gradient) and the
+    # f32 weights once
+    iters = None
+    if trained:
+        iters = int(got.iters) if "iters" in value_fields(got) else 1
+    it_bytes = 2 * rows * d * 4 + rows * 4
+    rec = {"pipeline": name, "rows": rows, "features": d,
+           "fused_ms": fused_ms, "staged_ms": staged_ms,
+           "staged_over_fused": staged_ms / fused_ms,
+           "iters": iters,
+           "fused_ms_per_iter": fused_ms / iters if iters else None,
+           "iter_bound_ms": (it_bytes / H100_BYTES_PER_S * 1e3
+                             if trained else None),
+           "fused_device_ms": dev, "fused_wall_ms": wall,
+           "fused_busy_share": dev / wall if wall else None,
+           "fused_d2h_copies": d2h_copies(names),
+           "fused_events": len(names),
+           "staged_device_ms": s_dev, "staged_wall_ms": s_wall,
+           "staged_busy_share": s_dev / s_wall if s_wall else None,
+           "staged_d2h_copies": d2h_copies(s_names),
+           "native_fired": fired(native), "staged_max_abs_err": staged_err,
+           "fused_top": [[e.key[:50], e.self_device_time_total / 1e3,
+                          e.count] for e in sorted(
+               events, key=lambda e: e.self_device_time_total,
+               reverse=True)[:4]]}
+    log(f"[hetero] {json.dumps(rec)}")
+    return rec
+
+
+def oracle_check(torch, name: str, df) -> dict:
+    """``df`` (tol 0, a fixed max_iter) compiled on the card against the
+    volcano oracle on the host, once."""
+    got = df.lower(engine="compiled").compile()()
+    want, v_ms = wall_ms(lambda: df.lower(engine="volcano").compile()())
+    rtol, atol = ORACLE_TOL[name]
+    if "iters" in value_fields(got):
+        check(int(got.iters) == int(want.iters),
+              f"{name} oracle: {int(got.iters)} vs {int(want.iters)} "
+              "iterations")
+    err = values_close(got, want, rtol, atol, f"{name} compiled vs volcano",
+                       padded_assignments=True)
+    return {"pipeline": name, "oracle_max_abs_err": err, "rtol": rtol,
+            "atol": atol, "volcano_ms": v_ms}
+
+
+#: group counts at which phase 9 times both routes of group_by_reduce (the
+#: one-hot route's [k, n] f64 matrix is 5.1 GB at k 64 and 10 M rows)
+GROUP_SWEEP = (4, 8, 16, 32, 64)
+
+
+def group_routes(torch, ML, x, w) -> dict:
+    """``group_by_reduce``'s two routes alone at the points shape, for
+    each k of ``GROUP_SWEEP`` (keys from the first k rows' nearest
+    centroid): equal f64 sums and counts, CUDA-event ms each, and the
+    route ``group_route`` picks."""
+    n, d = x.shape
+    out = {"rows": n, "features": d, "onehot_max_groups":
+           ML.ONEHOT_MAX_GROUPS, "by_k": {}}
+    for k in GROUP_SWEEP:
+        keys = torch.argmin(ML.dist(x, x[:k]), dim=1).to(torch.int32)
+        rec, sums = {}, {}
+        for route, fn in ML.GROUP_ROUTES.items():
+            sums[route] = fn(keys, x, w, k)
+            rec[f"{route}_ms"] = cuda_ms(
+                torch, lambda f=fn: f(keys, x, w, k), runs=5)
+        a, b = sums["onehot"], sums["index_add"]
+        check(torch.equal(a[1], b[1]),
+              f"group_by_reduce counts differ by route at k {k}")
+        check(bool(torch.allclose(a[0], b[0], rtol=1e-9, atol=1e-6)),
+              f"group_by_reduce sums differ by route at k {k}")
+        rec.update({"kept": ML.group_route(k),
+                    "max_abs_diff": float((a[0] - b[0]).abs().max()),
+                    "bound_ms": (n * d * 4 + 2 * n * 4 + k * (d + 1) * 8)
+                    / H100_BYTES_PER_S * 1e3})
+        out["by_k"][k] = rec
+        del keys, sums, a, b
+    log(f"[hetero] group_by_reduce {json.dumps(out)}")
+    return out
+
+
+def log_price(cols):
+    """Fig. 8's batch UDF on lineitem: the log of the extended price."""
+    import torch
+    return {"log_price": torch.log1p(cols["l_extendedprice"])}
+
+
+def hetero_phase(torch, ctx, seed: int) -> None:
+    """Phase 9: the points pipelines at 10 M rows, then the Fig. 8 shape
+    on the SF 10 context's lineitem."""
+    from repro_torch.core import FlareContext, col, sum_, udf
+    from repro_torch.core import ml as ML
+    from repro_torch.relational import table as T
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls must run in full f32 (dist's argmin ties)")
+    t0 = time.perf_counter()
+    pts = FlareContext(device="cuda")
+    pts.register("points", points_table(T, POINTS_ROWS, seed=seed))
+    pts.preload("points")
+    torch.cuda.synchronize()
+    log(f"[hetero] points: {POINTS_ROWS} rows, d {POINTS_D}, seed {seed}, "
+        f"{time.perf_counter() - t0:.1f} s to make and load")
+    feat = [f"f{i}" for i in range(POINTS_D)]
+    etl = pts.table("points").filter(col("quality") > 0.1)
+
+    def radius(cols):
+        return {"r": torch.sqrt(cols["f0"] ** 2 + cols["f1"] ** 2),
+                "s": torch.tanh(cols["f0"])}
+
+    norm = udf("float32")(lambda x, y: torch.sqrt(x * x + y * y))
+    pipelines = {
+        "kmeans": etl.to_matrix(*feat).train("kmeans", k=4, max_iter=50),
+        "logreg": etl.train("logreg", columns=feat, label="label",
+                            max_iter=100),
+        "gda": etl.train("gda", columns=feat, label="label"),
+        "map_batches": (etl.map_batches(radius, columns=["f0", "f1"],
+                                        schema={"r": "float32",
+                                                "s": "float32"})
+                        .filter(col("r") < 5.0)
+                        .agg(sum_(col("r"), "total"),
+                             sum_(col("s"), "stot"))),
+        "udf_select": etl.select(("u", norm(col("f0"), col("f1")))),
+    }
+    records = [pipeline_record(torch, name, df, POINTS_ROWS, POINTS_D)
+               for name, df in pipelines.items()]
+    u = pipelines["udf_select"].lower(engine="compiled").compile()()["u"]
+    tbl = pts.catalog.table("points")
+    # the filter compares the f32 device column with f32(0.1)
+    keep = np.asarray(tbl["quality"]).astype(np.float32) > np.float32(0.1)
+    want = np.hypot(np.asarray(tbl["f0"])[keep], np.asarray(tbl["f1"])[keep])
+    check(u.shape == want.shape and bool(np.allclose(u, want, rtol=1e-5)),
+          "udf_select against numpy")
+
+    oracles = [
+        oracle_check(torch, "kmeans", etl.to_matrix(*feat).train(
+            "kmeans", k=4, tol=0.0, max_iter=ORACLE_ITERS["kmeans"])),
+        oracle_check(torch, "logreg", etl.train(
+            "logreg", columns=feat, label="label", tol=0.0,
+            max_iter=ORACLE_ITERS["logreg"])),
+        oracle_check(torch, "gda", pipelines["gda"])]
+    log(f"[hetero] compiled vs the volcano oracle: {json.dumps(oracles)}")
+
+    # the matrix and the weights the kernels train on
+    x = torch.stack([pts.cache.get(tbl, c) for c in feat], dim=1)
+    w = (pts.cache.get(tbl, "quality") > 0.1).float()
+    group_routes(torch, ML, x, w)
+    del x, w, pts, pipelines
+    torch.cuda.empty_cache()
+
+    fig8 = (ctx.table("lineitem")
+            .filter((col("l_shipdate") >= days("1995-01-01"))
+                    & (col("l_shipdate") < days("1996-01-01")))
+            .map_batches(log_price, columns=["l_extendedprice"],
+                         schema={"log_price": "float32"})
+            .to_matrix("l_quantity", "l_discount", "l_tax", "log_price")
+            .train("kmeans", k=8, max_iter=20))
+    lrows = ctx.catalog.table("lineitem").num_rows
+    rec = pipeline_record(torch, "fig8_lineitem", fig8, lrows, 4)
+    valid = int(np.sum(ctx.table("lineitem").filter(
+        (col("l_shipdate") >= days("1995-01-01"))
+        & (col("l_shipdate") < days("1996-01-01")))
+        .lower(engine="compiled").compile().result().mask))
+    log(f"[hetero] fig8_lineitem: {valid} valid rows of {lrows}")
+    check(rec["iters"] >= 1, "fig8_lineitem ran no iteration")
+    torch.cuda.empty_cache()
+    log(f"[hetero] phase 9 took {time.perf_counter() - t0:.1f} s")
+
 
 def run(sf: float, seed: int) -> int:
     import torch
@@ -1866,6 +2144,7 @@ def tpch_phases(torch, sf: float, seed: int, fixed, t_all: float) -> list:
     log(f"[summary] TPC-H phases 2-5 {time.perf_counter() - t_all:.1f} s")
     records += engine_ladder(torch, ctx, Q, per_query, generic_ms, generic,
                              seed)
+    hetero_phase(torch, ctx, seed)
     del ctx
     torch.cuda.empty_cache()
     return records

@@ -15,6 +15,7 @@
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.core import engines as ENG
 from repro_torch.core import expr as E
+from repro_torch.core import ml as ML
 from repro_torch.core import optimizer as OPT
 from repro_torch.core import plan as P
 from repro_torch.core import stages as S
@@ -170,6 +172,74 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.ctx, P.Limit(self.plan, n))
 
+    # -- heterogeneous pipelines (Flare Level 3, paper Fig. 8) -------------------
+
+    def map_batches(self, fn, columns: Union[str, Sequence[str]],
+                    schema, name: Optional[str] = None) -> "DataFrame":
+        """Apply a batch UDF over torch tensors as a plan node.
+
+        ``fn`` receives ``{column: tensor}`` for the declared ``columns``
+        (on the engine's device) and must return ``{name: tensor}``
+        matching ``schema`` (a dict ``{name: dtype}``, a sequence of
+        ``(name, dtype[, domain])``, or :class:`repro_torch.relational.
+        table.Field` objects).  It must be row-wise and
+        length-preserving; under the ``compiled`` engine it runs inside
+        the whole-query function, while the ``stage`` engine
+        materialises around it (Spark's black-box UDF behaviour).
+        Declared columns let the optimizer push filters across the node
+        and prune unused child columns.
+        """
+        cols = (columns,) if isinstance(columns, str) else tuple(columns)
+        fields = _out_fields(schema)
+        node = P.MapBatches(self.plan, fn, cols, fields,
+                            name or getattr(fn, "__name__", "map_batches"))
+        node.schema(self.ctx.catalog)  # validate declared inputs eagerly
+        return DataFrame(self.ctx, node)
+
+    def to_matrix(self, *columns: str) -> "MatrixView":
+        """The relational -> linear-algebra handoff (paper Fig. 8
+        ``toMatrix``): name the feature columns (default: every numeric
+        column) and get a :class:`MatrixView` to ``.train()`` on."""
+        schema = self.plan.schema(self.ctx.catalog)
+        if columns:
+            missing = [c for c in columns if c not in schema]
+            if missing:
+                raise KeyError(f"to_matrix: unknown column(s) {missing}")
+        else:
+            columns = tuple(f.name for f in schema
+                            if T.is_numeric(f.dtype))
+            if not columns:
+                raise ValueError("to_matrix: no numeric columns")
+        for c in columns:
+            if not T.is_numeric(schema[c].dtype):
+                raise TypeError(f"to_matrix: column {c!r} has dtype "
+                                f"{schema[c].dtype}; features must be "
+                                "numeric")
+        return MatrixView(self, tuple(columns))
+
+    def train(self, kernel, columns: Optional[Sequence[str]] = None,
+              label: Optional[str] = None, **hyper) -> "DataFrame":
+        """Train an ML kernel on this query's output -- as a plan node.
+
+        ``kernel`` is a registered name (``"kmeans"``, ``"logreg"``,
+        ``"gda"``), a :class:`repro_torch.core.ml.TrainKernel`, or a bare
+        callable over tensors.  Feature ``columns`` default to every
+        numeric column except ``label``.  Hyper-parameter values may be
+        :func:`repro_torch.core.expr.param` placeholders (runtime-bound,
+        one compiled pipeline per template).  Returns a terminal
+        DataFrame: ``.lower(engine=...)`` / ``.compile()`` / call yields
+        the kernel's result with host arrays.
+        """
+        if columns is None:
+            schema = self.plan.schema(self.ctx.catalog)
+            columns = [f.name for f in schema
+                       if T.is_numeric(f.dtype) and f.name != label]
+            if not columns:
+                raise ValueError(
+                    "train: no numeric feature columns besides the label; "
+                    "pass columns=[...] explicitly")
+        return self.to_matrix(*columns).train(kernel, label=label, **hyper)
+
     # -- compilation stages ------------------------------------------------------
 
     def lower(self, engine: str = "compiled", native: bool = False,
@@ -207,6 +277,60 @@ class DataFrame:
     def show(self, n: int = 20, engine: str = "stage",
              params: Optional[Dict[str, Any]] = None) -> None:
         print(format_rows(self.collect(engine, params=params), n))
+
+
+def _out_fields(schema) -> Tuple[T.Field, ...]:
+    """Normalise a map_batches output-schema spec into Field tuples."""
+    if isinstance(schema, T.Schema):
+        return schema.fields
+    items = schema.items() if isinstance(schema, dict) else schema
+    fields = []
+    for item in items:
+        if isinstance(item, T.Field):
+            fields.append(item)
+        else:
+            name, dtype, *rest = item
+            fields.append(T.Field(name, dtype, rest[0] if rest else None))
+    if not fields:
+        raise ValueError("map_batches needs at least one output column")
+    return tuple(fields)
+
+
+class MatrixView:
+    """A deferred [n, d] feature matrix over named query columns.
+
+    Not itself executable -- it exists to make the relational/ML
+    boundary explicit: ``df.to_matrix("f0", "f1").train("kmeans", k=4)``
+    builds an :class:`repro_torch.core.plan.IterativeKernel` plan whose
+    lowering fuses the ETL and the training loop (compiled engine) or
+    stages them (the other engines).
+    """
+
+    def __init__(self, df: DataFrame, columns: Tuple[str, ...]):
+        self.df = df
+        self.columns = columns
+
+    def train(self, kernel, label: Optional[str] = None,
+              **hyper) -> DataFrame:
+        k = ML.train_kernel(kernel)
+        schema = self.df.plan.schema(self.df.ctx.catalog)
+        if label is not None:
+            if label not in schema:
+                raise KeyError(f"train: unknown label column {label!r}")
+            if not T.is_numeric(schema[label].dtype):
+                raise TypeError(
+                    f"train: label column {label!r} has dtype "
+                    f"{schema[label].dtype}; labels must be numeric "
+                    "(dictionary-encode categories to codes explicitly)")
+        if k.needs_labels and label is None:
+            raise TypeError(f"kernel {k.name!r} needs labels; pass "
+                            "label=...")
+        node = P.IterativeKernel(self.df.plan, k, self.columns, label,
+                                 tuple(sorted(hyper.items())))
+        return DataFrame(self.df.ctx, node)
+
+    def __repr__(self):
+        return f"MatrixView(columns={list(self.columns)})"
 
 
 class GroupedData:
@@ -248,6 +372,58 @@ def count(name: str = "count") -> P.AggSpec:
 def any_(e: E.Expr, name: str = "any") -> P.AggSpec:
     """Carry a functionally-dependent column through a group-by."""
     return P.AggSpec(name, "any", e)
+
+
+# -- the accelerator entry point (paper section 4.1), now a shim ---------------
+
+
+class FlareDataFrame:
+    """``flare(df)``: route this DataFrame through whole-query compilation.
+
+    .. deprecated:: thin shim over ``df.lower("compiled").compile()``;
+       prefer the stages API, which separates compile from run and
+       supports parameter bindings.
+    """
+
+    def __init__(self, df: DataFrame):
+        self.df = df
+        self.stats = ENG.CompileStats()
+
+    def _compiled(self) -> S.Compiled:
+        compiled = self.df.lower("compiled").compile()
+        self.stats = compiled.stats
+        return compiled
+
+    def collect(self, params: Optional[Dict[str, Any]] = None
+                ) -> Dict[str, np.ndarray]:
+        return self._compiled().collect(**(params or {}))
+
+    def result(self, params: Optional[Dict[str, Any]] = None):
+        return self._compiled().result(**(params or {}))
+
+    def count(self, params: Optional[Dict[str, Any]] = None) -> int:
+        return self.result(params).num_rows()
+
+    def show(self, n: int = 20) -> None:
+        print(format_rows(self.collect(), n))
+
+    def explain(self) -> str:
+        return self.df.explain()
+
+    def to_matrix(self, dtype=np.float32) -> np.ndarray:
+        """Hand off to an ML kernel (paper Fig. 8 ``flare(q).toMatrix``)."""
+        cols = self.collect()
+        return np.stack([np.asarray(v, dtype) for v in cols.values()],
+                        axis=1)
+
+
+def flare(df: DataFrame) -> FlareDataFrame:
+    """Deprecated: use ``df.lower(engine="compiled").compile()``."""
+    warnings.warn(
+        "flare(df) is deprecated; use df.lower(engine='compiled')"
+        ".compile() (repro_torch.core.stages)", DeprecationWarning,
+        stacklevel=2)
+    return FlareDataFrame(df)
 
 
 def format_rows(cols: Dict[str, np.ndarray], n: int = 20) -> str:

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core import expr as E
 from repro_torch.core import lower as L
+from repro_torch.core import ml as ML
 from repro_torch.core import plan as P
 from repro_torch.core.lower import TORCH_OF
 from repro_torch.relational import table as T
@@ -46,22 +47,20 @@ _HOST_OF = {torch.int32: np.int32, torch.float32: np.float32,
             torch.bool: np.bool_}
 
 
-class NotYetPortedError(NotImplementedError):
-    """A plan node whose execution waits for a later slice of the port:
-    ``MapBatches`` and ``IterativeKernel`` (the heterogeneous pipelines,
-    ROADMAP Queue 1 item 1)."""
+def host_tensor(a) -> torch.Tensor:
+    """A CPU tensor over host array ``a``, in its dtype: what the
+    interpreters hand a UDF (``repro_torch.core.staging``)."""
+    a = np.asarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a)
 
 
-def refuse_unported(p: P.Plan, engine: str) -> None:
-    """Raise :class:`NotYetPortedError` if ``p`` holds a plan node that
-    ``engine`` cannot run in the port yet."""
-    if isinstance(p, (P.MapBatches, P.IterativeKernel)):
-        raise NotYetPortedError(
-            f"the {engine} engine cannot run {type(p).__name__} plans yet: "
-            f"the heterogeneous pipelines are not yet ported to "
-            f"repro_torch (ROADMAP Queue 1 item 1)")
-    for c in p.children():
-        refuse_unported(c, engine)
+def host_array(v) -> np.ndarray:
+    """A UDF's output back as a host array."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
 
 
 class UnindexableKeyError(ValueError):
@@ -282,18 +281,43 @@ class StageEngine:
         self.stages_run = 0
 
     def execute(self, p: P.Plan, catalog: P.Catalog, cache: DeviceCache,
-                params: Optional[Dict[str, Any]] = None) -> L.Result:
-        refuse_unported(p, "stage")
+                params: Optional[Dict[str, Any]] = None):
         self.stages_run = 0
         self._param_env = {
             s.name: torch.tensor(require_param(params, s),
                                  dtype=TORCH_OF[s.dtype], device=cache.device)
             for s in P.params_of(p)}
+        if isinstance(p, P.IterativeKernel):
+            # heterogeneous pipeline, Spark-style: the relational half
+            # materialises through the host, then the training kernel
+            # runs as its OWN stage on the device -- the staged baseline
+            # the fused whole-query engine is measured against
+            cols, mask, info = self._run_stage(p.child, catalog, cache)
+            return self._run_kernel_stage(p, cols, mask, info, cache)
         cols, mask, info = self._run_stage(p, catalog, cache)
         schema = p.schema(catalog)
         dicts = {n: sc.dictionary for n, sc in info.cols.items()}
         cols = {n: cols[n] for n in schema.names}
         return L.Result(cols, mask, schema, dicts)
+
+    def _run_kernel_stage(self, p: P.IterativeKernel,
+                          cols: Dict[str, np.ndarray], mask: np.ndarray,
+                          info: L.StaticInfo,
+                          cache: DeviceCache) -> L.ValueResult:
+        """The training kernel as a stage of its own: the relational
+        half's host columns back to the device, the kernel, its result
+        to the host."""
+        self.stages_run += 1
+        dev = cache.device
+        names = list(p.required_columns())
+        stream = L.Stream(
+            {m: torch.from_numpy(cols[m]).to(dev) for m in names},
+            torch.from_numpy(mask).to(dev),
+            L.StaticInfo({m: info.cols[m] for m in names}, info.n_rows), dev)
+        env = {v.name: self._param_env[v.name] for _, v in p.hyper
+               if isinstance(v, E.Param)}
+        out = L.apply_kernel(p, stream, env or None)
+        return L.ValueResult(ML.to_host(out))
 
     def _run_stage(self, root: P.Plan, catalog: P.Catalog,
                    cache: DeviceCache):
@@ -364,17 +388,39 @@ class VolcanoEngine:
 
     def execute(self, p: P.Plan, catalog: P.Catalog,
                 cache: Optional[DeviceCache] = None,
-                params: Optional[Dict[str, Any]] = None) -> L.Result:
-        refuse_unported(p, "volcano")
+                params: Optional[Dict[str, Any]] = None):
         self._params = {
             s.name: np.asarray(require_param(params, s),
                                T.numpy_dtype(s.dtype))[()]
             for s in P.params_of(p)}
+        if isinstance(p, P.IterativeKernel):
+            return self._train(p, catalog)
         vs = self._run(p, catalog)
         schema = p.schema(catalog)
         cols = {n: vs.cols[n] for n in schema.names}
         return L.Result(cols, None, schema,
                         {n: vs.dicts.get(n) for n in schema.names})
+
+    def _train(self, p: P.IterativeKernel,
+               catalog: P.Catalog) -> L.ValueResult:
+        """Interpreted heterogeneous pipeline: child rows are compacted
+        exact-size, so the kernel sees all-ones weights -- the same math
+        as the fused engine's masked padded batch.  The kernel runs on
+        CPU float32 tensors."""
+        vs = self._run(p.child, catalog)
+        n = len(next(iter(vs.cols.values())))
+        x = (np.stack([vs.cols[c].astype(np.float32) for c in p.features],
+                      axis=1) if n else
+             np.zeros((0, len(p.features)), np.float32))
+        y = (torch.from_numpy(vs.cols[p.label].astype(np.float32))
+             if p.label is not None else None)
+        w = torch.ones((n,), dtype=torch.float32)
+        hyper = {}
+        for k, v in p.hyper:
+            hyper[k] = (self._params[v.name].item() if isinstance(v, E.Param)
+                        else v)
+        out = p.kernel(torch.from_numpy(x), y, weights=w, **hyper)
+        return L.ValueResult(ML.to_host(out))
 
     # -- operators -----------------------------------------------------------
 
@@ -405,6 +451,29 @@ class VolcanoEngine:
                         dicts[name] = c.dicts.get(e.arg.name)
                 else:
                     doms[name] = None
+            return _VStream(cols, dicts, doms)
+        if isinstance(p, P.MapBatches):
+            c = self._run(p.child, catalog)
+            outs = p.fn({k: host_tensor(c.cols[k]) for k in p.columns})
+            if set(outs) != set(p.out_names):
+                raise TypeError(
+                    f"map_batches {p.name!r} returned {sorted(outs)}, "
+                    f"declared {sorted(p.out_names)}")
+            produced = set(p.out_names)
+            n_in = len(next(iter(c.cols.values())))
+            cols = {n: v for n, v in c.cols.items() if n not in produced}
+            dicts = {n: d for n, d in c.dicts.items() if n not in produced}
+            doms = {n: d for n, d in c.domains.items() if n not in produced}
+            for f in p.out_fields:
+                v = host_array(outs[f.name])
+                if v.shape != (n_in,):
+                    raise TypeError(
+                        f"map_batches {p.name!r} output {f.name!r} has "
+                        f"shape {v.shape}; expected ({n_in},) -- batch "
+                        "UDFs must be length-preserving 1-D columns")
+                cols[f.name] = v.astype(T.numpy_dtype(f.dtype))
+                dicts[f.name] = None
+                doms[f.name] = f.domain
             return _VStream(cols, dicts, doms)
         if isinstance(p, P.Join):
             return self._join(p, catalog)
@@ -621,8 +690,8 @@ class VolcanoEngine:
         if isinstance(e, E.WithDomain):
             return self._eval(e.arg, s)
         if isinstance(e, E.Udf):
-            args = [np.asarray(self._eval(a, s)) for a in e.args]
-            return np.asarray(e.fn(*args))
+            return host_array(e.fn(*[host_tensor(self._eval(a, s))
+                                     for a in e.args]))
         raise TypeError(e)
 
     @staticmethod

@@ -260,6 +260,13 @@ def static_info(p: P.Plan, catalog: P.Catalog) -> StaticInfo:
         return _static_of_scan(catalog.table(p.table))
     if isinstance(p, P.Filter):
         return static_info(p.child, catalog)
+    if isinstance(p, P.MapBatches):
+        child = static_info(p.child, catalog)
+        produced = set(p.out_names)
+        cols = {n: sc for n, sc in child.cols.items() if n not in produced}
+        for f in p.out_fields:
+            cols[f.name] = StaticCol(f.dtype, None, f.domain)
+        return StaticInfo(cols, child.n_rows)
     if isinstance(p, P.Project):
         child = static_info(p.child, catalog)
         schema = p.child.schema(catalog)
@@ -673,6 +680,29 @@ def lower_node(p: P.Plan, catalog: P.Catalog, scans: Dict[Any, Any],
         pred = as_column(eval_expr(p.pred, child, params), child)
         mask = pred if child.mask is None else (child.mask & pred)
         return Stream(child.cols, mask, child.info, child.device)
+    if isinstance(p, P.MapBatches):
+        child = lower_node(p.child, catalog, scans, params)
+        outs = p.fn({c: child.cols[c] for c in p.columns})
+        if set(outs) != set(p.out_names):
+            raise TypeError(
+                f"map_batches {p.name!r} returned columns "
+                f"{sorted(outs)}, declared schema is "
+                f"{sorted(p.out_names)}")
+        produced = set(p.out_names)
+        cols = {n: v for n, v in child.cols.items() if n not in produced}
+        scols = {n: sc for n, sc in child.info.cols.items()
+                 if n not in produced}
+        for f in p.out_fields:
+            v = torch.as_tensor(outs[f.name], device=child.device)
+            if tuple(v.shape) != (child.n,):
+                raise TypeError(
+                    f"map_batches {p.name!r} output {f.name!r} has shape "
+                    f"{tuple(v.shape)}; expected ({child.n},) -- batch UDFs "
+                    "must be length-preserving 1-D columns")
+            cols[f.name] = v.to(TORCH_OF[f.dtype])
+            scols[f.name] = StaticCol(f.dtype, None, f.domain)
+        return Stream(cols, child.mask, StaticInfo(scols, child.n),
+                      child.device)
     if isinstance(p, P.Project):
         child = lower_node(p.child, catalog, scans, params)
         cols = {}
@@ -713,6 +743,58 @@ def lower_node(p: P.Plan, catalog: P.Catalog, scans: Dict[Any, Any],
         return Stream(cols, mask, StaticInfo(child.info.cols, n),
                       child.device)
     raise TypeError(f"cannot lower plan node {p!r}")
+
+
+# ---------------------------------------------------------------------------
+# heterogeneous handoff: relational stream -> matrix -> training kernel
+# ---------------------------------------------------------------------------
+
+
+def resolve_hyper(p: P.IterativeKernel,
+                  params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """Bind the kernel's hyper-parameters: Param placeholders pull their
+    runtime value (a 0-d tensor) from ``params``; literals pass through.
+    Shape-affecting hypers (e.g. k-means ``k``) must be literals -- a
+    Param there fails inside the kernel, by design."""
+    out: Dict[str, Any] = {}
+    for k, v in p.hyper:
+        if isinstance(v, E.Param):
+            if params is None or v.name not in params:
+                raise KeyError(
+                    f"unbound hyper-parameter {v.name!r} of kernel "
+                    f"{p.kernel.name}; pass a binding, e.g. "
+                    f"compiled({v.name}=...)")
+            out[k] = params[v.name]
+        elif isinstance(v, E.Expr):
+            raise TypeError(
+                f"hyper-parameter {k!r} of {p.kernel.name} must be a "
+                f"literal or param(), got expression {v!r}")
+        else:
+            out[k] = v
+    return out
+
+
+def apply_kernel(p: P.IterativeKernel, stream: Stream,
+                 params: Optional[Dict[str, Any]] = None):
+    """Stack the feature columns of ``stream`` into an [n, d] float32
+    matrix on the stream's device and run the training kernel on it --
+    under the whole-query engine the relational operators and the
+    kernel's loop run in ONE function, no column leaving the device
+    (paper Fig. 8).
+
+    The validity mask becomes the kernel's sample weights and invalid
+    rows are zeroed (their padded contents are unspecified), so the
+    padded result equals the compacted interpreters' result.
+    """
+    mask = stream.the_mask()
+    w = mask.to(torch.float32)
+    x = torch.stack([stream.cols[c].to(torch.float32) for c in p.features],
+                    dim=1)
+    x = torch.where(mask[:, None], x, 0.0)
+    y = None
+    if p.label is not None:
+        y = torch.where(mask, stream.cols[p.label].to(torch.float32), 0.0)
+    return p.kernel(x, y, weights=w, **resolve_hyper(p, params))
 
 
 # ---------------------------------------------------------------------------
@@ -763,6 +845,15 @@ def required_scan_columns(p: P.Plan, catalog: P.Catalog) -> Dict[int, List[str]]
             if isinstance(node, P.Sort) and needed is not None:
                 need = set(needed) | {n for n, _ in node.by}
             rec(node.child, need)
+        elif isinstance(node, P.MapBatches):
+            if needed is None:
+                need = None  # every pass-through column may be consumed
+            else:
+                need = ((set(needed) - set(node.out_names))
+                        | set(node.columns))
+            rec(node.child, need)
+        elif isinstance(node, P.IterativeKernel):
+            rec(node.child, set(node.required_columns()))
         elif hasattr(node, "required_columns_hook"):
             node.required_columns_hook(rec, needed)
         else:
@@ -812,10 +903,32 @@ class Result:
         return c[name][0]
 
 
+@dataclasses.dataclass
+class ValueResult:
+    """Non-relational execution result: the output of a plan rooted at
+    :class:`repro_torch.core.plan.IterativeKernel` (e.g. a
+    ``KMeansResult``), every tensor as a host numpy array.  Quacks
+    enough like :class:`Result` for the stages API -- ``compact()`` is
+    the identity on the value."""
+
+    value: Any
+
+    def compact(self):
+        return self.value
+
+    def num_rows(self) -> int:
+        raise TypeError("a trained-kernel result has no row count; "
+                        "use .value / compact()")
+
+    def scalar(self, name: Optional[str] = None):
+        raise TypeError("a trained-kernel result has no scalar columns; "
+                        "use .value / compact()")
+
+
 def build_callable(p: P.Plan, catalog: P.Catalog,
                    param_specs: Sequence[E.Param] = ()
                    ) -> Tuple[Callable[..., Any], List[Tuple[int, List[str]]],
-                              List[JoinIndexSpec], StaticInfo]:
+                              List[JoinIndexSpec], Optional[StaticInfo]]:
     """Build the function over flat scan-column tensors.
 
     Returns (fn, arg_layout, index_layout, out_info) where arg_layout
@@ -826,7 +939,13 @@ def build_callable(p: P.Plan, catalog: P.Catalog,
     IndexCache``) -- and then one 0-d tensor per ``param_specs`` entry,
     in spec order.
     Setting ``p._join_index_disabled`` keeps every join on its
-    in-program sort.  ``fn`` returns ``(out_cols, mask)``.
+    in-program sort.
+
+    For a relational plan ``fn`` returns ``(out_cols, mask)``.  For a
+    plan rooted at :class:`repro_torch.core.plan.IterativeKernel` -- the
+    heterogeneous pipeline -- ``fn`` returns the kernel's result on the
+    device instead, the relational half flowing straight into the
+    training loop (``out_info`` is None).
     """
     needed = required_scan_columns(p, catalog)
     scan_nodes: List[P.Scan] = []
@@ -847,9 +966,10 @@ def build_callable(p: P.Plan, catalog: P.Catalog,
         index_specs, _ = join_index_plan(p, catalog)
     index_items = list(index_specs.items())  # plan-walk order = arg order
     index_layout = [spec for _, spec in index_items]
-    out_info = static_info(p, catalog)
+    ml_root = isinstance(p, P.IterativeKernel)
+    out_info = None if ml_root else static_info(p, catalog)
     param_specs = tuple(param_specs)
-    out_names = p.schema(catalog).names
+    out_names = None if ml_root else p.schema(catalog).names
 
     def fn(device: torch.device, *flat):
         it = iter(flat)
@@ -863,6 +983,9 @@ def build_callable(p: P.Plan, catalog: P.Catalog,
         for jid, _spec in index_items:
             scans[("joinidx", jid)] = (next(it), next(it), next(it))
         env = {spec.name: next(it) for spec in param_specs}
+        if ml_root:
+            stream = lower_node(p.child, catalog, scans, env or None)
+            return apply_kernel(p, stream, env or None)
         stream = lower_node(p, catalog, scans, env or None)
         out_cols = {n: as_column(stream.cols[n], stream) for n in out_names}
         return out_cols, stream.the_mask()

@@ -34,6 +34,7 @@ import torch
 from repro_torch.core import engines as ENG
 from repro_torch.core import expr as E
 from repro_torch.core import lower as L
+from repro_torch.core import ml as ML
 from repro_torch.core import plan as P
 from repro_torch.relational import table as T
 
@@ -120,6 +121,11 @@ def bind_params(p: P.Plan, params: Dict[str, Any]) -> P.Plan:
             return P.Aggregate(n.child, n.keys, tuple(
                 dataclasses.replace(a, arg=E.map_expr(a.arg, sub))
                 if a.arg is not None else a for a in n.aggs))
+        if isinstance(n, P.IterativeKernel):
+            return P.IterativeKernel(n.child, n.kernel, n.features, n.label,
+                                     tuple((k, ENG.require_param(params, v)
+                                            if isinstance(v, E.Param) else v)
+                                           for k, v in n.hyper))
         return None
 
     return P.transform(p, rule)
@@ -138,8 +144,10 @@ class _WholeQueryArtifact:
     # cached build-side join indexes: (perm, keys, meta) arguments each
     index_layout: Tuple[L.JoinIndexSpec, ...]
     param_specs: Tuple[E.Param, ...]
-    out_info: L.StaticInfo
-    schema: T.Schema
+    # both None for an IterativeKernel root: the function returns the
+    # kernel's result (the "value" kind), not columns
+    out_info: Optional[L.StaticInfo]
+    schema: Optional[T.Schema]
     # kernel units the plan's native fragments launch (built by compile)
     kernel_sources: Tuple[str, ...]
 
@@ -191,8 +199,10 @@ class WholeQueryEngine:
             p, catalog, param_specs)
         smap = ENG.scan_map(p)
         layout = tuple((smap[sid], tuple(names)) for sid, names in id_layout)
+        schema = (None if isinstance(p, P.IterativeKernel)
+                  else p.schema(catalog))
         return _WholeQueryArtifact(fn, layout, tuple(index_layout),
-                                   param_specs, out_info, p.schema(catalog),
+                                   param_specs, out_info, schema,
                                    kernel_sources(p))
 
     def compile(self, artifact: _WholeQueryArtifact,
@@ -203,7 +213,8 @@ class WholeQueryEngine:
         layout, specs = artifact.layout, artifact.param_specs
         index_layout = artifact.index_layout
         out_info, schema = artifact.out_info, artifact.schema
-        dicts = {n: sc.dictionary for n, sc in out_info.cols.items()}
+        dicts = ({} if out_info is None else
+                 {n: sc.dictionary for n, sc in out_info.cols.items()})
         fn = artifact.fn
 
         def run(catalog: P.Catalog, device_cache: ENG.DeviceCache,
@@ -214,7 +225,10 @@ class WholeQueryEngine:
                 args.append(torch.tensor(
                     ENG.require_param(params, s),
                     dtype=L.TORCH_OF[s.dtype], device=dev))
-            out_cols, mask = fn(dev, *args)
+            out = fn(dev, *args)
+            if schema is None:  # value kind: the kernel's result
+                return L.ValueResult(ML.to_host(out))
+            out_cols, mask = out
             out_np = {k: v.cpu().numpy() for k, v in out_cols.items()}
             return L.Result(out_np, mask.cpu().numpy(), schema, dicts)
 
@@ -500,6 +514,9 @@ class Compiled:
                             f"takes {sorted(known)}")
 
     def result(self, **params: Any) -> L.Result:
+        """The padded :class:`repro_torch.core.lower.Result`, or a
+        :class:`repro_torch.core.lower.ValueResult` for a ``train()``
+        plan."""
         self._check_bindings(params)
         t0 = time.perf_counter()
         out = self._exe(self._catalog, self._device_cache, params or None)
@@ -507,7 +524,8 @@ class Compiled:
         return out
 
     def __call__(self, **params: Any) -> Dict[str, np.ndarray]:
-        """Execute one binding; returns compacted host columns."""
+        """Execute one binding; returns compacted host columns (the
+        kernel's result, with host arrays, for a ``train()`` plan)."""
         return self.result(**params).compact()
 
     collect = __call__
@@ -582,10 +600,6 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
     elif native and engine != "compiled-native":
         raise ValueError(f"native=True requires the 'compiled' engine, got "
                          f"{engine!r}")
-    if engine in ("compiled", "compiled-native"):
-        # the other engines refuse when they run; the whole-query engine
-        # would otherwise fail in the lowering with a bare TypeError
-        ENG.refuse_unported(p, engine)
     if engine == "compiled-native":
         from repro_torch.native import dispatch as ND
         p, dispatch_report = ND.rewrite_plan(p, catalog, device_cache.device,

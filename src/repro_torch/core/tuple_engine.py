@@ -18,10 +18,12 @@ from __future__ import annotations
 from typing import Any, Dict, Iterator, List, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import engines as ENG
 from repro_torch.core import expr as E
 from repro_torch.core import lower as L
+from repro_torch.core import ml as ML
 from repro_torch.core import plan as P
 from repro_torch.relational import table as T
 
@@ -65,8 +67,9 @@ def _eval_row(e: E.Expr, row: Row):
     if isinstance(e, E.WithDomain):
         return _eval_row(e.arg, row)
     if isinstance(e, E.Udf):
-        args = [_eval_row(a, row) for a in e.args]
-        return float(np.asarray(e.fn(*[np.asarray([a]) for a in args]))[0])
+        args = [ENG.host_tensor(np.asarray([_eval_row(a, row)]))
+                for a in e.args]
+        return float(ENG.host_array(e.fn(*args))[0])
     raise TypeError(e)
 
 
@@ -74,8 +77,9 @@ class TupleEngine:
     """Row-at-a-time interpreter; Param placeholders must already be
     bound (``repro_torch.core.stages.bind_params``)."""
 
-    def execute(self, p: P.Plan, catalog: P.Catalog, cache=None) -> L.Result:
-        ENG.refuse_unported(p, "tuple")
+    def execute(self, p: P.Plan, catalog: P.Catalog, cache=None):
+        if isinstance(p, P.IterativeKernel):
+            return self._train(p, catalog)
         schema = p.schema(catalog)
         rows = list(self._iter(p, catalog))
         cols: Dict[str, np.ndarray] = {}
@@ -88,6 +92,28 @@ class TupleEngine:
                                           dtype=T.numpy_dtype(f.dtype))
         return L.Result(cols, None, schema,
                         {f.name: None for f in schema})
+
+    def _train(self, p: P.IterativeKernel,
+               catalog: P.Catalog) -> L.ValueResult:
+        """Row-at-a-time ETL feeding the kernel: rows are gathered one by
+        one (the interpreted baseline), then trained in one batch on CPU
+        float32 tensors.  Hyper Params must already be bound
+        (``stages.bind_params``)."""
+        rows = list(self._iter(p.child, catalog))
+        d = len(p.features)
+        x = torch.tensor([[row[c] for c in p.features] for row in rows],
+                         dtype=torch.float32).reshape(len(rows), d)
+        y = (torch.tensor([row[p.label] for row in rows],
+                          dtype=torch.float32)
+             if p.label is not None else None)
+        w = torch.ones((len(rows),), dtype=torch.float32)
+        for k, v in p.hyper:
+            if isinstance(v, E.Expr):
+                raise TypeError(
+                    f"tuple engine needs bound hyper-parameters; "
+                    f"{k!r} is still {v!r}")
+        out = p.kernel(x, y, weights=w, **dict(p.hyper))
+        return L.ValueResult(ML.to_host(out))
 
     # -- iterators -------------------------------------------------------------
 
@@ -108,6 +134,27 @@ class TupleEngine:
         elif isinstance(p, P.Project):
             for row in self._iter(p.child, catalog):
                 yield {name: _eval_row(e, row) for name, e in p.outputs}
+        elif isinstance(p, P.MapBatches):
+            # one-row batches: each row becomes a length-1 column dict --
+            # every per-row call the paper talks about is a real call here
+            produced = set(p.out_names)
+            for row in self._iter(p.child, catalog):
+                outs = p.fn({c: ENG.host_tensor(np.asarray([row[c]]))
+                             for c in p.columns})
+                if set(outs) != produced:
+                    raise TypeError(
+                        f"map_batches {p.name!r} returned {sorted(outs)}, "
+                        f"declared {sorted(produced)}")
+                new = {n: v for n, v in row.items() if n not in produced}
+                for f in p.out_fields:
+                    arr = ENG.host_array(outs[f.name])
+                    if arr.shape != (1,):
+                        raise TypeError(
+                            f"map_batches {p.name!r} output {f.name!r} "
+                            f"has shape {arr.shape} for a 1-row batch; "
+                            "batch UDFs must be length-preserving")
+                    new[f.name] = arr.astype(T.numpy_dtype(f.dtype))[0].item()
+                yield new
         elif isinstance(p, P.Join):
             build: Dict[Tuple, Row] = {}
             for row in self._iter(p.right, catalog):

@@ -15,8 +15,9 @@ three engines at SF 0.005, the scale of the JAX engine matrix:
 
 Also: the stage decomposition and ``stages_run`` equal the reference's,
 ``collect()`` defaults to the stage engine, ``native=True`` is refused by
-the interpreted engines, unported plan nodes raise a typed error, and the
-port's ``data.io`` writes and reads what the JAX package's does.
+the interpreted engines, the heterogeneous plan nodes (``IterativeKernel``,
+``MapBatches``) run on the three engines equal to the JAX volcano oracle,
+and the port's ``data.io`` writes and reads what the JAX package's does.
 """
 import numpy as np
 import pytest
@@ -24,11 +25,17 @@ import pytest
 from conftest import assert_results_equal
 from repro.core import FlareContext as JaxContext
 from repro.core import engines as JENG
+from repro.core import ml as JML
+from repro.core import plan as JP
 from repro.core import stages as JS
+from repro.core import col as jcol
+from repro.core import sum_ as jsum
 from repro.data import io as JIO
 from repro.relational import queries as JQ
+from repro.relational import table as JT
 from repro_torch.core import FlareContext, col, sum_
 from repro_torch.core import engines as ENG
+from repro_torch.core import ml as ML
 from repro_torch.core import plan as P
 from repro_torch.core import stages as S
 from repro_torch.data import io as PIO
@@ -159,26 +166,42 @@ def test_native_rejects_interpreted_engines(ctxs, engine):
         Q.q6(pc).lower(engine=engine, native=True)
 
 
-class _Kernel:
-    name = "kmeans"
+def _colsum(x, weights=None):
+    return {"s": (x * weights[:, None]).sum(0)}
 
-    @staticmethod
-    def fn(x, y, weights, **hyper):
-        return x
+
+#: a training kernel and a batch UDF over one lineitem column, written for
+#: each package: the JAX twins take jnp arrays, the port's torch tensors
+KERNELS = {"jax": JML.TrainKernel("colsum", _colsum),
+           "port": ML.TrainKernel("colsum", _colsum)}
+DOUBLES = {"jax": lambda c: {"q2": c["l_quantity"] * 2.0},
+           "port": lambda c: {"q2": c["l_quantity"] * 2.0}}
+
+
+def heterogeneous_plans(ctx, P_, PT_, col_, sum_fn, side):
+    """``IterativeKernel`` and ``MapBatches`` plans over lineitem."""
+    li = ctx.table("lineitem").filter(col_("l_quantity") < 25.0)
+    train = P_.IterativeKernel(li.plan, KERNELS[side],
+                               ("l_quantity", "l_discount"), None, ())
+    batches = P_.MapBatches(li.plan, DOUBLES[side], ("l_quantity",),
+                            (PT_.Field("q2", PT_.FLOAT32),))
+    return train, P_.Aggregate(batches, (), (sum_fn(col_("q2"), "s"),))
 
 
 @pytest.mark.parametrize("engine", ["volcano", "stage", "tuple"])
-def test_unported_plan_nodes_raise_a_typed_error(ctxs, engine):
-    _, pc = ctxs
-    li = pc.table("lineitem")
-    train = P.IterativeKernel(li.plan, _Kernel(), ("l_quantity",), None, ())
-    batches = P.MapBatches(li.plan, lambda c: c, ("l_quantity",),
-                           (PT.Field("q2", PT.FLOAT32),))
-    for plan in (train, P.Aggregate(batches, (), (sum_(col("q2"), "s"),))):
-        compiled = S.lower_plan(plan, pc.catalog, pc.cache, pc.compile_cache,
-                                engine=engine).compile()
-        with pytest.raises(ENG.NotYetPortedError, match="Queue 1 item 1"):
-            compiled()
+def test_heterogeneous_plan_nodes_run(ctxs, engine):
+    jc, pc = ctxs
+    jplans = heterogeneous_plans(jc, JP, JT, jcol, jsum, "jax")
+    pplans = heterogeneous_plans(pc, P, PT, col, sum_, "port")
+    for jplan, pplan in zip(jplans, pplans):
+        # the train plan's result is the kernel's dict {"s": [2]}, the
+        # aggregate's a one-row column "s"
+        want = JS.lower_plan(jplan, jc.catalog, "volcano", jc.cache,
+                             jc.compile_cache).compile()()
+        got = S.lower_plan(pplan, pc.catalog, pc.cache, pc.compile_cache,
+                           engine=engine).compile()()
+        assert_results_equal(want, got,
+                             msg=f"{type(pplan.child).__name__} {engine}")
 
 
 @pytest.fixture(scope="module")

@@ -699,3 +699,79 @@ def test_probe_routes_on_edge_keys(card, index, masked):
     assert torch.equal(got, searched), (got, searched)
     assert torch.equal(got, want), (got, want)
     assert 0 < float(want[1]) < n   # some rows hit, some miss
+
+
+# -- the heterogeneous pipelines (paper Fig. 8 / 13) ---------------------------
+
+
+def _points_ctx(device, n, d=8, seed=0):
+    """benchmarks/bench_ml.py's points generator at ``n`` rows."""
+    from repro_torch.relational.table import Table
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 5, (4, d))
+    assign = rng.integers(0, 4, n)
+    x = centers[assign] + rng.normal(0, 1, (n, d))
+    data = {f"f{i}": x[:, i] for i in range(d)}
+    data["label"] = (assign % 2).astype(np.int32)
+    data["quality"] = rng.uniform(0, 1, n)
+    ctx = FlareContext(device=device)
+    ctx.register("points", Table.from_arrays(data))
+    return ctx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["kmeans", "logreg", "gda"])
+def test_fused_pipeline_equals_staged_on_card(card, kernel):
+    """The fused ``compiled`` pipeline against the ``stage`` engine on the
+    card at 1 M rows (the same iterations, fields at rtol 1e-4), and
+    against the volcano oracle on the host with tol 0 and a fixed
+    max_iter (the reference tests' limits)."""
+    from repro_torch.core import col
+    ctx = _points_ctx("cuda", 1_000_000)
+    feat = [f"f{i}" for i in range(8)]
+    etl = ctx.table("points").filter(col("quality") > 0.1)
+    hyper = {"kmeans": dict(k=4, max_iter=50), "logreg": dict(max_iter=100),
+             "gda": {}}[kernel]
+    label = None if kernel == "kmeans" else "label"
+    tr = etl.train(kernel, columns=feat, label=label, **hyper)
+    fused = tr.lower(engine="compiled").compile()()
+    staged = tr.lower(engine="stage").compile()()
+    for name, got in fused._asdict().items():
+        want = getattr(staged, name)
+        if name == "iters":
+            assert int(got) == int(want)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
+    limits = {"kmeans": (1e-3, 1e-3), "logreg": (1e-4, 1e-5),
+              "gda": (1e-3, 1e-4)}[kernel]
+    if kernel != "gda":
+        hyper.update(tol=0.0, max_iter=10)
+        tr = etl.train(kernel, columns=feat, label=label, **hyper)
+        fused = tr.lower(engine="compiled").compile()()
+    oracle = tr.lower(engine="volcano").compile()()
+    for name, want in oracle._asdict().items():
+        if name != "assignments":  # padded against compacted
+            np.testing.assert_allclose(getattr(fused, name), want,
+                                       rtol=limits[0], atol=limits[1],
+                                       err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+def test_group_by_reduce_routes_agree_on_card(card, weighted):
+    from repro_torch.core import ml as ML
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n, d, k = 2_000_003, 8, 4
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    keys = torch.randint(0, k, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    w = ((torch.rand(n, generator=gen, device="cuda") < 0.9).float()
+         if weighted else torch.ones(n, device="cuda"))
+    a = ML.GROUP_ROUTES["onehot"](keys, x, w, k)
+    b = ML.GROUP_ROUTES["index_add"](keys, x, w, k)
+    c = ML.GROUP_ROUTES["index_add"](keys.cpu(), x.cpu(), w.cpu(), k)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[1].cpu(), c[1])
+    torch.testing.assert_close(a[0], b[0], rtol=1e-9, atol=1e-6)
+    torch.testing.assert_close(a[0].cpu(), c[0], rtol=1e-9, atol=1e-6)
+    got = ML.group_by_reduce(keys, x, k, w if weighted else None)
+    torch.testing.assert_close(got[0], a[0].float(), rtol=0, atol=0)

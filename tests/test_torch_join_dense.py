@@ -19,8 +19,9 @@ instead of searching for it and skips the ``perm`` load.  Here:
 * every probe body names the probe columns its key reads
   (``Body.key_cols``, which ``chip_smoke.py``'s bound counts at valid
   rows);
-* the ``compiled`` engine, like the other three, refuses the
-  heterogeneous plan nodes with ``NotYetPortedError``.
+* the heterogeneous plan nodes (``MapBatches``, ``IterativeKernel``) run
+  on every engine and through ``compiled-native``, equal to the volcano
+  oracle and to numpy.
 
 The CUDA routes themselves -- on these edge keys too -- are held
 bit-identical on the card (``tests/test_torch_gpu.py``).
@@ -35,9 +36,11 @@ from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
+from conftest import assert_results_equal
 from repro.kernels.join_probe import kernel as JJP
 from repro_torch.core import FlareContext, col, sum_
 from repro_torch.core import engines as ENG
+from repro_torch.core import ml as ML
 from repro_torch.core import plan as P
 from repro_torch.core import stages as S
 from repro_torch.kernels.join_probe import kernel as JP
@@ -297,38 +300,62 @@ def test_probe_tile_rows_come_from_the_kernel_source():
     assert JP.list_bytes() == 8 * 1024 * 2
 
 
-# -- unported plan nodes -----------------------------------------------------
+# -- heterogeneous plan nodes -------------------------------------------------
 
 
-class _Kernel:
-    name = "kmeans"
+def _colsum(x, weights=None):
+    return {"s": (x * weights[:, None]).sum(0)}
 
-    @staticmethod
-    def fn(x, y, weights, **hyper):
-        return x
+
+KERNEL = ML.TrainKernel("colsum", _colsum)
+
+
+def _hetero_plan(ctx, node):
+    """A ``MapBatches`` under an aggregate, or an ``IterativeKernel``,
+    over filtered lineitem."""
+    li = ctx.table("lineitem").filter(col("l_quantity") < 25.0)
+    if node == "MapBatches":
+        batches = P.MapBatches(li.plan,
+                               lambda c: {"q2": c["l_quantity"] * 2.0},
+                               ("l_quantity",), (PT.Field("q2", PT.FLOAT32),))
+        return P.Aggregate(batches, (), (sum_(col("q2"), "s"),))
+    return P.IterativeKernel(li.plan, KERNEL, ("l_quantity", "l_discount"),
+                             None, ())
+
+
+def _numpy_answer(ctx, node):
+    li = ctx.catalog.table("lineitem")
+    q = np.asarray(li["l_quantity"], np.float64)
+    d = np.asarray(li["l_discount"], np.float64)
+    keep = q < 25.0
+    if node == "MapBatches":
+        return {"s": np.asarray([(q[keep] * 2.0).sum()])}
+    return {"s": np.asarray([q[keep].sum(), d[keep].sum()])}
 
 
 @pytest.mark.parametrize("engine", ["compiled", "volcano", "stage", "tuple"])
 @pytest.mark.parametrize("node", ["MapBatches", "IterativeKernel"])
-def test_every_engine_refuses_unported_plan_nodes(ctx, engine, node):
-    li = ctx.table("lineitem")
-    if node == "MapBatches":
-        batches = P.MapBatches(li.plan, lambda c: c, ("l_quantity",),
-                               (PT.Field("q2", PT.FLOAT32),))
-        plan = P.Aggregate(batches, (), (sum_(col("q2"), "s"),))
-    else:
-        plan = P.IterativeKernel(li.plan, _Kernel(), ("l_quantity",), None,
-                                 ())
-    with pytest.raises(ENG.NotYetPortedError, match="Queue 1 item 1"):
-        S.lower_plan(plan, ctx.catalog, ctx.cache, ctx.compile_cache,
-                     engine=engine).compile()()
+def test_every_engine_runs_heterogeneous_plan_nodes(ctx, engine, node):
+    plan = _hetero_plan(ctx, node)
+    got = S.lower_plan(plan, ctx.catalog, ctx.cache, ctx.compile_cache,
+                       engine=engine).compile()()
+    oracle = S.lower_plan(plan, ctx.catalog, ctx.cache, ctx.compile_cache,
+                          engine="volcano").compile()()
+    assert_results_equal(oracle, got, msg=f"{node} {engine}")
+    assert_results_equal(_numpy_answer(ctx, node), got,
+                         msg=f"{node} {engine} vs numpy")
 
 
-def test_compiled_native_refuses_unported_plan_nodes(ctx):
-    li = ctx.table("lineitem")
-    batches = P.MapBatches(li.plan, lambda c: c, ("l_quantity",),
-                           (PT.Field("q2", PT.FLOAT32),))
-    plan = P.Aggregate(batches, (), (sum_(col("q2"), "s"),))
-    with pytest.raises(ENG.NotYetPortedError, match="compiled-native"):
-        S.lower_plan(plan, ctx.catalog, ctx.cache, ctx.compile_cache,
-                     engine="compiled", native=True)
+def test_compiled_native_runs_heterogeneous_plan_nodes(ctx):
+    for node in ("MapBatches", "IterativeKernel"):
+        plan = _hetero_plan(ctx, node)
+        low = S.lower_plan(plan, ctx.catalog, ctx.cache, ctx.compile_cache,
+                           engine="compiled", native=True)
+        oracle = S.lower_plan(plan, ctx.catalog, ctx.cache,
+                              ctx.compile_cache, engine="volcano").compile()()
+        assert_results_equal(oracle, low.compile()(), msg=f"{node} native")
+        # the aggregate over the UDF's output is a dispatchable fragment;
+        # the train plan holds no aggregate
+        fired = low.dispatch_report().fired_patterns()
+        assert fired == (["masked-filter-project"] if node == "MapBatches"
+                         else [])
