@@ -109,7 +109,25 @@ Phases, in order; any failure exits non-zero:
    ``map_batches`` log price, kmeans k 8 over four columns), fused
    against staged.  Its lines are
    tagged ``[hetero]``; it launches none of the seven kernels but the
-   one ``compiled-native`` fires on the ``map_batches`` aggregate.
+   one ``compiled-native`` fires on the ``map_batches`` aggregate;
+10. template serving, after phase 9 on the same context: the templates
+   q6, q14, q19 and q22 (its first binding from ``q22_params``) at B 1,
+   4, 8, 16 and 64 bindings from ``random_bindings``, each served one at
+   a time by ``Compiled.result`` on ``compiled``, one at a time by
+   ``Compiled.submit`` on ``compiled-native`` (the kernels: launches
+   reset to 0 before the phase and read after it, the records'
+   ``serving_launches``; each template's kernel at least once per
+   binding) and through ``QueryServer(ctx, engine="compiled")`` (submit,
+   flush, read every future: one vmapped ``Compiled.batch``, which
+   launches none of the kernels); every served result equal to both at
+   rtol 5e-3; req/s and p50/p99 latency of each way, occupancy, coalesce
+   ratio, the first batch's wall and build seconds, the peak device
+   bytes of the server's run (after a reset); exactly one batched
+   program per (template, bucket) in the ``CompileCache``; each batch's
+   ``raw`` under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+   sync); a batch of 8 q6 bindings with one poisoned (an unknown
+   parameter) that fails only that future, the 7 others equal to their
+   sequential results, by bisection.  Its lines are tagged ``[serve]``.
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -2054,6 +2072,194 @@ def hetero_phase(torch, ctx, seed: int) -> None:
     log(f"[hetero] phase 9 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: template serving (Compiled.batch, QueryServer)
+# ---------------------------------------------------------------------------
+
+#: the templates phase 10 serves, and the kernel each launches on
+#: ``compiled-native``
+SERVE_KERNELS = {"q6": "filter_agg_general", "q14": "join_probe_agg",
+                 "q19": "join_probe_agg", "q22": "segmented_multi_sum"}
+#: batch sizes: benchmarks/bench_serve.py's, plus the server's default
+#: max_batch
+SERVE_BATCHES = (1, 4, 8, 16, 64)
+
+
+def serve_bindings(Q, name: str, n: int, seed: int, q22: dict) -> list:
+    """``n`` bindings of template ``name`` from ``random_bindings``; q22's
+    first is its scalar subquery's own value (``q22_params``)."""
+    out = Q.random_bindings(name, n, seed=seed)
+    if name == "q22":
+        out[0] = dict(q22)
+    return out
+
+
+def rate_record(lat: list, wall_s: float) -> dict:
+    return {"req_per_s": len(lat) / wall_s,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3}
+
+
+def one_at_a_time(torch, call, bindings):
+    """Each binding through ``call`` (ends in the host result); the
+    results, per-request seconds and the wall seconds of the run."""
+    out, lat = [], []
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for b in bindings:
+        t0 = time.perf_counter()
+        out.append(call(b).compact())
+        lat.append(time.perf_counter() - t0)
+    return out, lat, time.perf_counter() - t_all
+
+
+def served(torch, QueryServer, ctx, name: str, bindings):
+    """The bindings through a fresh ``QueryServer(ctx, engine="compiled")``:
+    submit all, one flush, read every future.  Returns the results, the
+    server's stats and the wall seconds."""
+    server = QueryServer(ctx, engine="compiled")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [server.submit(name, **b) for b in bindings]
+    server.flush()
+    out = [f.result().compact() for f in futs]
+    return out, server.stats, time.perf_counter() - t0
+
+
+def raw_sync_free(torch, ENG, compiled, ctx, bindings) -> None:
+    """A batch's ``raw`` under ``set_sync_debug_mode("error")``: any host
+    sync inside it (a blocking copy, ``.item()``, ``nonzero``) raises."""
+    bucket = ENG.batch_bucket(len(bindings))
+    padded = bindings + [bindings[-1]] * (bucket - len(bindings))
+    exe = compiled._batch_executor(bucket)
+    stacked = {s.name: [b[s.name] for b in padded]
+               for s in compiled.params()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = exe.raw(ctx.catalog, ctx.cache, stacked)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    del out
+
+
+def poison_check(torch, QueryServer, ctx, Q, seed: int) -> dict:
+    """A batch of 8 with one poisoned binding (an unknown parameter):
+    only its future fails, the 7 others equal their sequential results."""
+    bindings = Q.random_bindings("q6", 7, seed=seed)
+    compiled = Q.TEMPLATES["q6"](ctx).lower(engine="compiled").compile()
+    want = [compiled.result(**b).compact() for b in bindings]
+    server = QueryServer(ctx, engine="compiled")
+    futs = [server.submit("q6", **b) for b in bindings[:3]]
+    poison = server.submit("q6", nonsense=1.0)
+    futs += [server.submit("q6", **b) for b in bindings[3:]]
+    server.flush()
+    for i, (f, w) in enumerate(zip(futs, want)):
+        assert_close(f.result().compact(), w, f"poisoned batch, binding {i}")
+    try:
+        poison.result()
+        raise SmokeFailure("the poisoned binding's future did not fail")
+    except TypeError as ex:
+        check("unknown parameter" in str(ex), f"poison error: {ex}")
+    st = server.stats
+    check(st.bisects >= 1 and st.poisoned == 1,
+          f"poison isolation: bisects {st.bisects}, poisoned {st.poisoned}")
+    return {"bisects": st.bisects, "poisoned": st.poisoned,
+            "batches": st.batches}
+
+
+def serving_phase(torch, ctx, Q, FA, SR, JP, seed: int) -> dict:
+    """Phase 10: each template's bindings served three ways -- one at a
+    time on ``compiled``, one at a time by ``Compiled.submit`` on
+    ``compiled-native`` (the kernels), and coalesced by the QueryServer
+    (``Compiled.batch``: one vmapped call per template and bucket) --
+    with equal results, one batched program per (template, bucket), a
+    sync-free batch ``raw``, poison isolation, and the kernels launched
+    by the native submits.  Returns the kernels' launches."""
+    from repro_torch.core import engines as ENG
+    from repro_torch.serve import QueryServer
+
+    t_phase = time.perf_counter()
+    mods = {"filter_agg_general": FA, "join_probe_agg": JP,
+            "segmented_multi_sum": SR}
+    q22 = Q.q22_params(ctx, engine="compiled")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_bytes = torch.cuda.memory_allocated()
+    log(f"[serve] resident before phase 10: {base_bytes} bytes; batches "
+        f"{list(SERVE_BATCHES)}")
+    cache = ctx.compile_cache
+    for mod in mods.values():
+        mod.launches = 0
+    for name, kernel in SERVE_KERNELS.items():
+        compiled = Q.TEMPLATES[name](ctx).lower(engine="compiled").compile()
+        native = Q.TEMPLATES[name](ctx).lower(engine="compiled",
+                                              native=True).compile()
+        warm = serve_bindings(Q, name, 1, seed, q22)[0]
+        compiled.result(**warm)   # first calls: lazy CUDA and cuBLAS setup
+        native.submit(**warm).result()
+        for n in SERVE_BATCHES:
+            bindings = serve_bindings(Q, name, n, seed + n, q22)
+            seq, seq_lat, seq_wall = one_at_a_time(
+                torch, lambda b: compiled.result(**b), bindings)
+            before = {k: m.launches for k, m in mods.items()}
+            nat, nat_lat, nat_wall = one_at_a_time(
+                torch, lambda b: native.submit(**b).result(), bindings)
+            native_launches = mods[kernel].launches - before[kernel]
+            check(native_launches >= n, f"{name}: {n} native submits "
+                  f"launched {kernel} {native_launches} times")
+            before = {k: m.launches for k, m in mods.items()}
+            misses = cache.misses
+            _, cold, cold_wall = served(torch, QueryServer, ctx, name,
+                                        bindings)
+            check(cache.misses - misses == 1,
+                  f"{name} B {n}: the first batch built "
+                  f"{cache.misses - misses} programs")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            misses = cache.misses
+            got, st, wall = served(torch, QueryServer, ctx, name, bindings)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            check(cache.misses == misses,
+                  f"{name} B {n}: a second batch built a program again")
+            check({k: m.launches for k, m in mods.items()} == before,
+                  f"{name}: the batched path launched a kernel")
+            for i, (g, s, v) in enumerate(zip(got, seq, nat)):
+                assert_close(g, s, f"{name} B {n} served vs compiled #{i}")
+                assert_close(g, v, f"{name} B {n} served vs native #{i}")
+            raw_sync_free(torch, ENG, compiled, ctx, bindings)
+            bucket = ENG.batch_bucket(n)
+            rec = {"template": name, "batch": n, "bucket": bucket,
+                   "native_launches": native_launches,
+                   "compiled": rate_record(seq_lat, seq_wall),
+                   "native": rate_record(nat_lat, nat_wall),
+                   "served": rate_record(st.latencies_s, wall),
+                   "occupancy": st.batch_occupancy(),
+                   "coalesce_ratio": st.coalesce_ratio(),
+                   "first_batch_s": cold_wall,
+                   "first_batch_build_s": cold.compile_s,
+                   "peak_bytes": peak,
+                   "peak_over_resident_bytes": peak - base_bytes}
+            log(f"[serve] {json.dumps(rec)}")
+        keys = [k for k in cache._entries
+                if k[:-1] == compiled.cache_key and k[-1][0] == "batch"]
+        buckets = sorted(k[-1][1] for k in keys)
+        check(buckets == sorted({ENG.batch_bucket(n)
+                                 for n in SERVE_BATCHES}),
+              f"{name}: batched programs for buckets {buckets}")
+    launches = {k: m.launches for k, m in mods.items()}
+    log(f"[serve] launches in phase 10 (native submits only): "
+        f"{json.dumps(launches)}")
+    for k, v in launches.items():
+        check(v > 0, f"{k} was never launched on the serving path")
+    log(f"[serve] poison: {json.dumps(poison_check(torch, QueryServer, ctx, Q, seed))}")
+    torch.cuda.empty_cache()
+    log(f"[serve] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def run(sf: float, seed: int) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2145,6 +2351,11 @@ def tpch_phases(torch, sf: float, seed: int, fixed, t_all: float) -> list:
     records += engine_ladder(torch, ctx, Q, per_query, generic_ms, generic,
                              seed)
     hetero_phase(torch, ctx, seed)
+    serving = serving_phase(torch, ctx, Q, FA, SR, JP, seed)
+    for r in records:
+        base = r["name"].split("[")[0]
+        if base in serving:
+            r["serving_launches"] = serving[base]
     del ctx
     torch.cuda.empty_cache()
     return records

@@ -35,6 +35,7 @@ from repro_torch.core import lower as L
 from repro_torch.core import ml as ML
 from repro_torch.core import plan as P
 from repro_torch.core.lower import TORCH_OF
+from repro_torch.obs import metrics as OM
 from repro_torch.relational import table as T
 
 # Pipeline breakers.  MapBatches breaks on the stage engine by design:
@@ -45,6 +46,49 @@ _BREAKERS = (P.Join, P.Aggregate, P.Sort, P.Limit, P.MapBatches)
 
 _HOST_OF = {torch.int32: np.int32, torch.float32: np.float32,
             torch.bool: np.bool_}
+
+
+# ---------------------------------------------------------------------------
+# process-wide cache telemetry (one aggregate view over every live cache)
+# ---------------------------------------------------------------------------
+
+
+def register_cache(cache: Any) -> Any:
+    """Track ``cache`` in the process-wide telemetry registry.  The
+    cache's class must define a ``kind`` attribute ("compile", "index",
+    "device") and ``__len__``; hit/miss counters are optional.  Shim over
+    :data:`repro_torch.obs.metrics.REGISTRY` ("cache" domain)."""
+    return OM.REGISTRY.register("cache", cache)
+
+
+def cache_stats() -> Dict[str, Dict[str, Any]]:
+    """One aggregate snapshot over every live cache in the process:
+    per cache ``kind`` -- ``compile`` (query templates and their batched
+    programs), ``index`` (build-side join indexes), ``device`` (resident
+    columns) -- the keys ``caches``, ``entries``, ``hits``, ``misses``,
+    ``hit_rate``.  Exactly ``repro_torch.obs.snapshot()["caches"]``."""
+    return OM.cache_section()
+
+
+# ---------------------------------------------------------------------------
+# batch-bucket policy for vmap-coalesced prepared-query execution
+# ---------------------------------------------------------------------------
+
+
+def batch_bucket(n: int) -> int:
+    """The bucket serving a batch of ``n`` parameter bindings.
+
+    A batched program is built per binding-stack length, so one per
+    observed batch size would turn a busy server's ragged queues into a
+    build storm.  Buckets are the powers of two: a batch of ``n`` runs on
+    the next-power-of-two program with the tail padded by repeating the
+    last binding (padding results are discarded).  The bucket is part of
+    the CompileCache key (``repro_torch.core.stages.Compiled.batch``),
+    giving exactly one build per (template, bucket).
+    """
+    if n < 1:
+        raise ValueError(f"batch of {n} bindings")
+    return 1 << (n - 1).bit_length()
 
 
 def host_tensor(a) -> torch.Tensor:
@@ -118,6 +162,7 @@ class IndexCache:
         self._entries: Dict[Tuple, Tuple[T.Table, JoinIndex]] = {}
         self.hits = 0
         self.misses = 0
+        register_cache(self)
 
     @staticmethod
     def _key(tbl: T.Table, key_cols: Tuple[str, ...],
@@ -180,6 +225,7 @@ class DeviceCache:
         self.device = device
         self._cache: Dict[Tuple, Tuple[T.Table, torch.Tensor]] = {}
         self.indexes = IndexCache(device)
+        register_cache(self)
 
     def __len__(self) -> int:
         return len(self._cache)

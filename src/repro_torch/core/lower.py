@@ -7,7 +7,7 @@ the context's device::
     Filter      -> boolean selection mask (predication, never compacts)
     Hash join   -> sorted-array join: sort build keys once (or take the
                    cached index), probe with torch.searchsorted + gather
-    Hash agg    -> index_add_ / scatter_reduce onto the dense, statically
+    Hash agg    -> index_add / scatter_reduce onto the dense, statically
                    bounded group domain from dictionaries / key domains
     Strings     -> int32 dictionary codes; string predicates evaluated on
                    the dictionary at lowering time as lookup tables
@@ -114,9 +114,22 @@ def str_code(dictionary: Tuple[str, ...], value: str) -> int:
         return -1
 
 
+def upload(values: Any, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """Host values (a scalar or a list) as a tensor on ``device``, with no
+    host sync: on a CUDA device through pinned memory and a non-blocking
+    copy, ordered on the current stream before the work that reads it."""
+    host = torch.tensor(values, dtype=dtype)
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
+
+
 def as_column(x, stream: Stream) -> torch.Tensor:
-    """Broadcast a scalar (Python or 0-d) result to a column."""
-    t = torch.as_tensor(x, device=stream.device)
+    """Broadcast a scalar (Python or 0-d) result to a column.  A Python
+    scalar becomes a device fill, not a copy from the host (no sync)."""
+    t = (x if isinstance(x, torch.Tensor)
+         else torch.full((), x, device=stream.device))
     return t.expand(stream.n) if t.dim() == 0 else t
 
 
@@ -197,8 +210,8 @@ def eval_expr(e: E.Expr, stream: Stream,
         d = _dict_of(e.arg, info)
         if d is None:
             raise TypeError(f"{e.kind} on non-string column")
-        lut = torch.tensor([E.match_str(e.kind, s, e.params) for s in d],
-                           dtype=torch.bool, device=stream.device)
+        lut = upload([E.match_str(e.kind, s, e.params) for s in d],
+                     torch.bool, stream.device)
         codes = eval_expr(e.arg, stream, params)
         return lut[codes]
     if isinstance(e, E.IfThenElse):
@@ -572,8 +585,8 @@ def _lower_aggregate(p: P.Aggregate, child: Stream, catalog: P.Catalog,
         # where, NOT multiply-by-mask: invalid rows may hold arbitrary
         # values (a division yields inf/nan there) and nan * 0 would
         # poison the sum
-        return torch.where(mask, vals, torch.as_tensor(fill, dtype=vals.dtype,
-                                                       device=dev))
+        return torch.where(mask, vals, torch.full((), fill, dtype=vals.dtype,
+                                                  device=dev))
 
     if not p.keys:  # global aggregate
         cols: Dict[str, torch.Tensor] = {}
@@ -599,11 +612,15 @@ def _lower_aggregate(p: P.Aggregate, child: Stream, catalog: P.Catalog,
     for k, s in zip(p.keys, strides):
         code = code + child.cols[k].to(torch.int32) * s
     # rows whose code falls outside the domain contribute nothing (JAX's
-    # segment ops drop them; index_add_ would fault)
+    # segment ops drop them; index_add would fault)
     ok = mask & (code >= 0) & (code < domain)
     code = torch.where(ok, code, 0).long()
-    cnt = torch.zeros(domain, dtype=torch.int32, device=dev)
-    cnt.index_add_(0, code, ok.to(torch.int32))
+    # every accumulator is out of place (index_add, scatter_reduce), so
+    # torch.func.vmap can batch a param-dependent ``code`` or ``vals``
+    # into an unbatched zeros (build_batch_callable); the in-place forms
+    # refuse that, and their results are the same bit for bit
+    cnt = torch.zeros(domain, dtype=torch.int32, device=dev).index_add(
+        0, code, ok.to(torch.int32))
     cols = {}
     gidx = torch.arange(domain, dtype=torch.int32, device=dev)
     for k, s in zip(p.keys, strides):
@@ -617,12 +634,12 @@ def _lower_aggregate(p: P.Aggregate, child: Stream, catalog: P.Catalog,
             # than its addends stops growing (q1 at SF 10 sums 15 M rows
             # into one group)
             acc = torch.zeros((domain,), dtype=torch.float64, device=dev)
-            acc.index_add_(0, code, torch.where(ok, vals, 0).double())
+            acc = acc.index_add(0, code, torch.where(ok, vals, 0).double())
             return acc.to(vals.dtype)
         out = torch.full((domain,), fill, dtype=vals.dtype, device=dev)
         if op == "sum":
-            return out.index_add_(0, code, torch.where(ok, vals, fill))
-        return out.scatter_reduce_(0, code, torch.where(ok, vals, fill), op)
+            return out.index_add(0, code, torch.where(ok, vals, fill))
+        return out.scatter_reduce(0, code, torch.where(ok, vals, fill), op)
 
     for a in p.aggs:
         if a.op == "count":
@@ -991,3 +1008,49 @@ def build_callable(p: P.Plan, catalog: P.Catalog,
         return out_cols, stream.the_mask()
 
     return fn, layout, index_layout, out_info
+
+
+def build_batch_callable(p: P.Plan, catalog: P.Catalog,
+                         param_specs: Sequence[E.Param],
+                         ) -> Tuple[Callable[..., Any],
+                                    List[Tuple[int, List[str]]],
+                                    List[JoinIndexSpec],
+                                    Optional[StaticInfo]]:
+    """Build the vmap-coalesced variant of :func:`build_callable`.
+
+    All bindings of one prepared template run the same function over the
+    same tables -- only the ``param()`` scalars differ -- so a queue of B
+    same-template requests is one batched call, not B.  The returned
+    ``bfn(device, *flat)`` takes the same scan-column and join-index
+    arguments as the single-binding function (shared, ``in_dims=None``)
+    and one ``[B]`` tensor per param spec (the stacked bindings,
+    ``in_dims=0``); every output gains a leading ``[B]`` axis.  The device
+    stays outside the vmapped arguments.
+
+    ``torch.func.vmap`` keeps the sharing real: operators that do not
+    depend on a param (scans, index probes of param-free joins,
+    dictionary gathers) run once, unbatched, and only the param-dependent
+    dataflow fans out over the batch axis -- materialised at ``[B, n]``,
+    since PyTorch runs each operator eagerly.
+
+    Raises for a param-free template: with no binding axis, every request
+    is the same execution -- run it once and share the result
+    (``repro_torch.core.stages.Compiled.batch`` does exactly that).
+    """
+    param_specs = tuple(param_specs)
+    if not param_specs:
+        raise ValueError(
+            "build_batch_callable needs param() placeholders; a "
+            "param-free template has no binding axis -- execute it once "
+            "and share the result across requests")
+    fn, layout, index_layout, out_info = build_callable(p, catalog,
+                                                        param_specs)
+    n_shared = (sum(len(names) for _, names in layout)
+                + 3 * len(index_layout))
+    in_dims = (None,) * n_shared + (0,) * len(param_specs)
+
+    def bfn(device: torch.device, *flat):
+        return torch.func.vmap(lambda *a: fn(device, *a),
+                               in_dims=in_dims)(*flat)
+
+    return bfn, layout, index_layout, out_info

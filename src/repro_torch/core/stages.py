@@ -5,6 +5,8 @@
     lowered.dispatch_report()        # which kernel patterns fired
     compiled = lowered.compile()     # builds the native kernels (nvcc)
     compiled(**params)               # execute (many times, cheap)
+    compiled.submit(**params)        # dispatch only: an AsyncResult
+    compiled.batch([b1, b2, ...])    # many bindings as ONE vmapped call
 
 Compile time and run time are measured apart (``CompileStats``), one
 compiled template is reused across executions and, with
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +38,9 @@ from repro_torch.core import expr as E
 from repro_torch.core import lower as L
 from repro_torch.core import ml as ML
 from repro_torch.core import plan as P
+from repro_torch.obs import trace as OT
 from repro_torch.relational import table as T
+from repro_torch.resilience import faults as FZ
 
 CompileStats = ENG.CompileStats
 
@@ -86,6 +90,7 @@ class CompileCache:
         self._entries: Dict[Tuple, Executor] = {}
         self.hits = 0
         self.misses = 0
+        ENG.register_cache(self)
 
     def lookup(self, key: Tuple) -> Optional[Executor]:
         exe = self._entries.get(key)
@@ -210,29 +215,45 @@ class WholeQueryEngine:
         if device.type == "cuda" and artifact.kernel_sources:
             from repro_torch.kernels import cuda_build
             cuda_build.build_all(artifact.kernel_sources)
-        layout, specs = artifact.layout, artifact.param_specs
-        index_layout = artifact.index_layout
-        out_info, schema = artifact.out_info, artifact.schema
-        dicts = ({} if out_info is None else
-                 {n: sc.dictionary for n, sc in out_info.cols.items()})
-        fn = artifact.fn
+        return whole_query_executor(artifact)
 
-        def run(catalog: P.Catalog, device_cache: ENG.DeviceCache,
-                params: Optional[Dict[str, Any]]) -> L.Result:
-            dev = device_cache.device
-            args = _marshal_args(layout, index_layout, catalog, device_cache)
-            for s in specs:
-                args.append(torch.tensor(
-                    ENG.require_param(params, s),
-                    dtype=L.TORCH_OF[s.dtype], device=dev))
-            out = fn(dev, *args)
-            if schema is None:  # value kind: the kernel's result
-                return L.ValueResult(ML.to_host(out))
-            out_cols, mask = out
-            out_np = {k: v.cpu().numpy() for k, v in out_cols.items()}
-            return L.Result(out_np, mask.cpu().numpy(), schema, dicts)
 
-        return run
+def whole_query_executor(artifact: _WholeQueryArtifact) -> Executor:
+    """Wrap a lowered function into an executor: ``run`` binds the
+    catalog and a binding and returns the host result; ``run.raw``
+    dispatches and returns the device outputs, ``run.finalize`` copies
+    them to the host (the deferred path behind ``Compiled.submit``).  A
+    param binding may be a scalar or, for a batched function, a list."""
+    layout, specs = artifact.layout, artifact.param_specs
+    index_layout = artifact.index_layout
+    out_info, schema = artifact.out_info, artifact.schema
+    dicts = ({} if out_info is None else
+             {n: sc.dictionary for n, sc in out_info.cols.items()})
+    fn = artifact.fn
+
+    def raw(catalog: P.Catalog, device_cache: ENG.DeviceCache,
+            params: Optional[Dict[str, Any]]):
+        dev = device_cache.device
+        args = _marshal_args(layout, index_layout, catalog, device_cache)
+        for s in specs:
+            args.append(L.upload(ENG.require_param(params, s),
+                                 L.TORCH_OF[s.dtype], dev))
+        return fn(dev, *args)
+
+    def finalize(out):
+        if schema is None:  # value kind: the kernel's result
+            return L.ValueResult(ML.to_host(out))
+        out_cols, mask = out
+        out_np = {k: v.cpu().numpy() for k, v in out_cols.items()}
+        return L.Result(out_np, mask.cpu().numpy(), schema, dicts)
+
+    def run(catalog: P.Catalog, device_cache: ENG.DeviceCache,
+            params: Optional[Dict[str, Any]]) -> L.Result:
+        return finalize(raw(catalog, device_cache, params))
+
+    run.raw = raw            # deferred-sync protocol (AsyncResult)
+    run.finalize = finalize
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -455,10 +476,11 @@ class Lowered:
 
     def _force(self) -> Any:
         if self._artifact is None:
-            t0 = time.perf_counter()
-            self._artifact = self._engine.lower(self._plan, self._catalog,
-                                                self._param_specs)
-            self._lower_s = time.perf_counter() - t0
+            with OT.span("lower", engine=self._engine.name):
+                t0 = time.perf_counter()
+                self._artifact = self._engine.lower(
+                    self._plan, self._catalog, self._param_specs)
+                self._lower_s = time.perf_counter() - t0
         return self._artifact
 
     def compile(self, cache: Optional[CompileCache] = None) -> "Compiled":
@@ -466,20 +488,186 @@ class Lowered:
         cache = cache if cache is not None else self._compile_cache
         stats = CompileStats(engine=self._engine.name, cache_key=self._key,
                              dispatch=self._dispatch_report)
-        exe = cache.lookup(self._key)
-        if exe is None:
-            artifact = self._force()
-            t0 = time.perf_counter()
-            exe = self._engine.compile(artifact, self._device_cache.device)
-            stats.compile_s = time.perf_counter() - t0
-            stats.lower_s = self._lower_s
-            cache.insert(self._key, exe)
-        else:
-            stats.cache_hit = True
-        stats.trace_compile_s = stats.lower_s + stats.compile_s
+        with OT.span("compile", engine=self._engine.name) as csp:
+            exe = cache.lookup(self._key)
+            if exe is None:
+                artifact = self._force()
+                t0 = time.perf_counter()
+                exe = self._engine.compile(artifact,
+                                           self._device_cache.device)
+                stats.compile_s = time.perf_counter() - t0
+                stats.lower_s = self._lower_s
+                cache.insert(self._key, exe)
+            else:
+                stats.cache_hit = True
+            stats.trace_compile_s = stats.lower_s + stats.compile_s
+            csp.set(cache="hit" if stats.cache_hit else "miss",
+                    compile_s=round(stats.compile_s, 6),
+                    lower_s=round(stats.lower_s, 6))
         return Compiled(exe, self._plan, self._catalog, self._engine.name,
                         self._param_specs, self._key, self._device_cache,
-                        stats)
+                        stats, compile_cache=cache)
+
+
+def _ready_event(device: torch.device) -> Optional[Any]:
+    """A CUDA event recorded on the current stream behind the work just
+    dispatched to ``device``; None on the CPU, where PyTorch runs each
+    operator to its end before it returns."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record()
+    return event
+
+
+class AsyncResult:
+    """A dispatched execution whose device outputs have not been copied
+    to the host.
+
+    Returned by ``Compiled.submit`` / ``Compiled(..., block=False)`` and
+    by ``Compiled.batch(block=False)``: the device work is queued, and a
+    CUDA event recorded behind it marks its end; nothing waits for it
+    until the caller asks for the value.  Every request of a coalesced
+    batch holds its own handle onto the shared device outputs and pays
+    the copy of its own slice only when its client reads.
+
+    ``ready()`` probes the event (non-blocking), ``block_until_ready()``
+    waits on it without a copy, and ``result()`` materialises (once, and
+    caches) the host-side :class:`repro_torch.core.lower.Result` and
+    drops the device reference.  On the CPU there is no event: the work
+    has run by the time the handle exists.
+    """
+
+    def __init__(self, out: Any, finalize: Callable[[Any], Any],
+                 event: Optional[Any] = None):
+        self._out = out
+        self._finalize = finalize
+        self._event = event
+        self._result: Any = None
+        self._done = False
+
+    def ready(self) -> bool:
+        """True once the device computation has finished."""
+        return self._done or self._event is None or self._event.query()
+
+    def block_until_ready(self) -> "AsyncResult":
+        if not self._done and self._event is not None:
+            self._event.synchronize()
+        return self
+
+    def result(self) -> Any:
+        """The host-side Result (blocks until ready, cached)."""
+        if not self._done:
+            self._result = self._finalize(self._out)
+            self._done = True
+            self._out = self._event = None  # free the device references
+        return self._result
+
+    def compact(self) -> Dict[str, np.ndarray]:
+        return self.result().compact()
+
+    collect = compact
+
+    def __repr__(self):
+        state = "ready" if self.ready() else "pending"
+        return f"AsyncResult<{state}>"
+
+
+@dataclasses.dataclass
+class BatchExecutor:
+    """A vmap-coalesced template: ONE call serving a ``bucket``-sized
+    stack of parameter bindings.
+
+    Lives in the :class:`CompileCache` under the template's key extended
+    with ``("batch", bucket)``.  ``raw`` dispatches the whole batch
+    (stacked ``[bucket]`` param tensors, shared scan/index arguments) and
+    returns the device outputs, each with a leading ``[bucket]`` axis;
+    ``finalize_one(out, i)`` copies request ``i``'s slice to the host.
+    """
+
+    raw: Callable[[P.Catalog, ENG.DeviceCache, Dict[str, List[Any]]], Any]
+    finalize_one: Callable[[Any, int], Any]
+    bucket: int
+
+
+def _stack(values: List[Any]) -> Any:
+    """Stack per-binding results into one with a leading batch axis
+    (NamedTuples, tuples, lists and dicts keep their shape)."""
+    first = values[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(values)
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(_stack(list(v)) for v in zip(*values)))
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack(list(v)) for v in zip(*values))
+    if isinstance(first, dict):
+        return {k: _stack([v[k] for v in values]) for k in first}
+    return torch.as_tensor(values)
+
+
+def _slice(value: Any, i: int) -> Any:
+    """Row ``i`` of every tensor in a (nested) batched result."""
+    if isinstance(value, torch.Tensor):
+        return value[i]
+    if isinstance(value, tuple) and hasattr(value, "_fields"):
+        return type(value)(*(_slice(v, i) for v in value))
+    if isinstance(value, (tuple, list)):
+        return type(value)(_slice(v, i) for v in value)
+    if isinstance(value, dict):
+        return {k: _slice(v, i) for k, v in value.items()}
+    return value
+
+
+def compile_batch_executor(p: P.Plan, catalog: P.Catalog,
+                           param_specs: Tuple[E.Param, ...],
+                           bucket: int) -> BatchExecutor:
+    """Build the ``bucket``-wide batched program of a template.
+
+    The single-binding function is vmapped over the param axis
+    (:func:`repro_torch.core.lower.build_batch_callable`): scan columns
+    and join-index arguments broadcast, each ``param()`` placeholder
+    becomes one stacked ``[bucket]`` tensor.
+
+    A ``train()`` root cannot go through vmap: the port's
+    ``until_converged`` reads one diff an iteration on the host.  Its
+    batched program runs the single-binding function once per row of the
+    stack and stacks the outputs -- the same result, one dispatch per
+    binding (the JAX package vmaps its ``lax.while_loop``).
+
+    The fault site ``compile.xla`` fires here, where the program is
+    built (:mod:`repro_torch.resilience.faults`).
+    """
+    FZ.fault_point("compile.xla", bucket=bucket)
+    if isinstance(p, P.IterativeKernel):
+        fn, id_layout, index_layout, out_info = L.build_callable(
+            p, catalog, param_specs)
+        n_params = len(param_specs)
+
+        def bfn(dev, *flat):
+            shared, stacked = flat[:-n_params], flat[-n_params:]
+            return _stack([fn(dev, *shared, *(t[i] for t in stacked))
+                           for i in range(bucket)])
+    else:
+        bfn, id_layout, index_layout, out_info = L.build_batch_callable(
+            p, catalog, param_specs)
+    smap = ENG.scan_map(p)
+    layout = tuple((smap[sid], tuple(names)) for sid, names in id_layout)
+    schema = None if out_info is None else p.schema(catalog)
+    executor = whole_query_executor(_WholeQueryArtifact(
+        bfn, layout, tuple(index_layout), param_specs, out_info, schema,
+        ()))
+
+    def finalize_one(out, i: int):
+        return executor.finalize(_slice(out, i))
+
+    return BatchExecutor(executor.raw, finalize_one, bucket)
+
+
+#: Engines whose Compiled objects support vmap-coalesced batching.  The
+#: native variant keeps per-binding dispatch: its fragments are ctypes
+#: launches of nvcc-built kernels, which ``torch.func.vmap`` cannot
+#: batch (the JAX package's Pallas kernels carry no vmap rule either).
+_BATCHABLE_ENGINES = ("compiled",)
 
 
 class Compiled:
@@ -487,13 +675,18 @@ class Compiled:
 
     ``compiled(**params)`` returns compacted host columns;
     ``compiled.result(**params)`` the padded :class:`repro_torch.core.
-    lower.Result`.  One Compiled serves any number of bindings.
+    lower.Result`; ``compiled(block=False, **params)`` /
+    ``compiled.submit(**params)`` an :class:`AsyncResult` whose device
+    outputs stay on the device until read; ``compiled.batch([...])``
+    coalesces many bindings into ONE vmapped call.  One Compiled serves
+    any number of bindings.
     """
 
     def __init__(self, exe: Executor, p: P.Plan, catalog: P.Catalog,
                  engine_name: str, param_specs: Tuple[E.Param, ...],
                  key: Tuple, device_cache: ENG.DeviceCache,
-                 stats: CompileStats):
+                 stats: CompileStats,
+                 compile_cache: Optional[CompileCache] = None):
         self._exe = exe
         self._plan = p
         self._catalog = catalog
@@ -502,9 +695,18 @@ class Compiled:
         self.cache_key = key
         self._device_cache = device_cache
         self.stats = stats
+        self._compile_cache = compile_cache
+        self._last_trace: Optional[OT.Trace] = None
 
     def params(self) -> Tuple[E.Param, ...]:
         return self._param_specs
+
+    def last_trace(self) -> Optional[OT.Trace]:
+        """The :class:`repro_torch.obs.trace.Trace` of this template's
+        most recent execution (the execute span and everything inside
+        it); None until an execution runs with tracing enabled
+        (``FLARE_TRACE=1`` or ``repro_torch.obs.capture()``)."""
+        return self._last_trace
 
     def _check_bindings(self, params: Dict[str, Any]) -> None:
         known = {s.name for s in self._param_specs}
@@ -518,17 +720,137 @@ class Compiled:
         :class:`repro_torch.core.lower.ValueResult` for a ``train()``
         plan."""
         self._check_bindings(params)
-        t0 = time.perf_counter()
-        out = self._exe(self._catalog, self._device_cache, params or None)
-        self.stats.run_s = time.perf_counter() - t0
+        if not OT.TRACER.on:  # hot path: no tracing machinery
+            t0 = time.perf_counter()
+            out = self._exe(self._catalog, self._device_cache, params or None)
+            self.stats.run_s = time.perf_counter() - t0
+            return out
+        mark = OT.TRACER.watermark()
+        with OT.span("execute", engine=self.engine_name, mode="sync") as sp:
+            t0 = time.perf_counter()
+            out = self._exe(self._catalog, self._device_cache, params or None)
+            self.stats.run_s = time.perf_counter() - t0
+        sp.set(run_s=round(self.stats.run_s, 6))
+        self._last_trace = OT.Trace(OT.TRACER.since(mark))
         return out
 
-    def __call__(self, **params: Any) -> Dict[str, np.ndarray]:
-        """Execute one binding; returns compacted host columns (the
-        kernel's result, with host arrays, for a ``train()`` plan)."""
+    def submit(self, **params: Any) -> AsyncResult:
+        """Dispatch without a host copy: returns an :class:`AsyncResult`
+        whose device outputs are copied only at ``.result()`` /
+        ``.compact()``.  ``stats.run_s`` then measures dispatch only.
+        Engines without a deferred path (stage, volcano, tuple) run
+        eagerly behind an already-ready handle, so the API is uniform
+        across engines."""
+        self._check_bindings(params)
+        raw = getattr(self._exe, "raw", None)
+        tracing = OT.TRACER.on
+        mark = OT.TRACER.watermark() if tracing else 0
+        with OT.span("execute", engine=self.engine_name,
+                     mode="dispatch") as sp:
+            t0 = time.perf_counter()
+            if raw is None:  # no deferred path: eager, trivially ready
+                out = self._exe(self._catalog, self._device_cache,
+                                params or None)
+                handle = AsyncResult(None, lambda _: out)
+                handle.result()
+            else:
+                out = raw(self._catalog, self._device_cache, params or None)
+                handle = AsyncResult(out, self._exe.finalize,
+                                     _ready_event(self._device_cache.device))
+            self.stats.run_s = time.perf_counter() - t0
+        if tracing:
+            sp.set(run_s=round(self.stats.run_s, 6), deferred=raw is not None)
+            self._last_trace = OT.Trace(OT.TRACER.since(mark))
+        return handle
+
+    def __call__(self, block: bool = True, **params: Any):
+        """Execute one binding.  ``block=True`` (default) returns
+        compacted host columns (the kernel's result, with host arrays,
+        for a ``train()`` plan); ``block=False`` returns the
+        :class:`AsyncResult` handle.  ``block`` is reserved: name a query
+        parameter something else, or bind through ``result()`` /
+        ``submit()``."""
+        if not block:
+            return self.submit(**params)
         return self.result(**params).compact()
 
     collect = __call__
+
+    # -- vmap-coalesced multi-binding execution ------------------------------
+
+    def batch(self, bindings: Sequence[Dict[str, Any]],
+              block: bool = True) -> List[Any]:
+        """Execute many bindings of this template as ONE call.
+
+        The bindings stack into one ``[bucket]`` tensor per ``param()``
+        spec (scan columns and join indexes shared), the vmapped function
+        runs once, and each binding gets its own slice of the shared
+        outputs: ``block=True`` returns one
+        :class:`repro_torch.core.lower.Result` per binding,
+        ``block=False`` one :class:`AsyncResult` per binding (the
+        server's deferred per-request copy).
+
+        Batched programs are bucketed (:func:`repro_torch.core.engines.
+        batch_bucket`: next power of two) and cached in the template's
+        CompileCache under ``cache_key + (("batch", bucket),)`` --
+        exactly one build per (template, bucket); ragged batches pad by
+        repeating the last binding and the padding is discarded.
+
+        A param-free template degenerates to perfect coalescing: every
+        request is the same execution, run once and shared.  Engines
+        other than ``compiled`` raise ``TypeError``.
+        """
+        bindings = [dict(b) for b in bindings]
+        if not bindings:
+            return []
+        if self.engine_name not in _BATCHABLE_ENGINES:
+            raise TypeError(
+                f"batched execution requires one of {_BATCHABLE_ENGINES} "
+                f"(vmap over the whole-query function); engine "
+                f"{self.engine_name!r} keeps per-binding dispatch")
+        for b in bindings:
+            self._check_bindings(b)
+        if not self._param_specs:
+            handle = self.submit()
+            handles = [handle] * len(bindings)
+            return [h.result() for h in handles] if block else handles
+        bucket = ENG.batch_bucket(len(bindings))
+        tracing = OT.TRACER.on
+        mark = OT.TRACER.watermark() if tracing else 0
+        with OT.span("execute", engine=self.engine_name, mode="batch",
+                     bindings=len(bindings), bucket=bucket) as sp:
+            exe = self._batch_executor(bucket)
+            padded = bindings + [bindings[-1]] * (bucket - len(bindings))
+            stacked = {s.name: [ENG.require_param(b, s) for b in padded]
+                       for s in self._param_specs}
+            t0 = time.perf_counter()
+            out = exe.raw(self._catalog, self._device_cache, stacked)
+            event = _ready_event(self._device_cache.device)
+            self.stats.run_s = time.perf_counter() - t0
+        if tracing:
+            sp.set(run_s=round(self.stats.run_s, 6))
+            self._last_trace = OT.Trace(OT.TRACER.since(mark))
+        handles = [AsyncResult(out, lambda o, i=i: exe.finalize_one(o, i),
+                               event)
+                   for i in range(len(bindings))]
+        return [h.result() for h in handles] if block else handles
+
+    def _batch_executor(self, bucket: int) -> BatchExecutor:
+        key = self.cache_key + (("batch", bucket),)
+        cache = self._compile_cache
+        exe = cache.lookup(key) if cache is not None else None
+        if exe is None:
+            with OT.span("compile", engine=self.engine_name, kind="batch",
+                         bucket=bucket) as csp:
+                t0 = time.perf_counter()
+                exe = compile_batch_executor(self._plan, self._catalog,
+                                             self._param_specs, bucket)
+                self.stats.compile_s += time.perf_counter() - t0
+                csp.set(cache="miss",
+                        compile_s=round(time.perf_counter() - t0, 6))
+                if cache is not None:
+                    cache.insert(key, exe)
+        return exe
 
     def count(self, **params: Any) -> int:
         return self.result(**params).num_rows()

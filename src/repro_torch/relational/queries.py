@@ -337,3 +337,39 @@ TEMPLATE_BINDINGS: Dict[str, Any] = {
             {"acctbal_min": 2500.0},
             {"acctbal_min": 4500.0}],
 }
+
+
+def random_bindings(name: str, n: int, seed: int = 0) -> list:
+    """``n`` random-but-reproducible bindings for template ``name`` --
+    the official benchmark's "draw substitution parameters per run", for
+    a multi-tenant request mix.
+
+    The draws follow the JAX package's ``repro.relational.queries.
+    random_bindings``; the generator is seeded from a stable hash of the
+    name (``zlib.crc32``) where the JAX package uses the salted builtin
+    ``hash``, so the same (name, n, seed) gives the same bindings in
+    every process.
+    """
+    import random
+    import zlib
+    rng = random.Random((zlib.crc32(name.encode()) & 0xFFFF) ^ seed)
+    out = []
+    for _ in range(n):
+        if name == "q6":
+            out.append(q6_binding(rng.randint(1993, 1997),
+                                  round(rng.uniform(0.02, 0.09), 2),
+                                  float(rng.randint(24, 25))))
+        elif name == "q14":
+            y, m = rng.randint(1993, 1997), rng.randint(1, 12)
+            y2, m2 = (y + 1, 1) if m == 12 else (y, m + 1)
+            out.append({"date_lo": date(f"{y}-{m:02d}-01"),
+                        "date_hi": date(f"{y2}-{m2:02d}-01")})
+        elif name == "q19":
+            out.append({"qty1": float(rng.randint(1, 10)),
+                        "qty2": float(rng.randint(10, 20)),
+                        "qty3": float(rng.randint(20, 30))})
+        elif name == "q22":
+            out.append({"acctbal_min": round(rng.uniform(0.0, 5000.0), 2)})
+        else:
+            raise KeyError(f"no binding generator for template {name!r}")
+    return out

@@ -775,3 +775,69 @@ def test_group_by_reduce_routes_agree_on_card(card, weighted):
     torch.testing.assert_close(a[0].cpu(), c[0], rtol=1e-9, atol=1e-6)
     got = ML.group_by_reduce(keys, x, k, w if weighted else None)
     torch.testing.assert_close(got[0], a[0].float(), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# template serving: Compiled.batch (torch.func.vmap) and AsyncResult
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tname", sorted(Q.TEMPLATES))
+def test_batch_matches_sequential_on_card(card_ctx, tname):
+    compiled = Q.TEMPLATES[tname](card_ctx).lower(engine="compiled").compile()
+    bindings = Q.random_bindings(tname, 5, seed=3)
+    want = [compiled.result(**b).compact() for b in bindings]
+    got = compiled.batch(bindings)
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert_results_equal(w, g.compact(), rtol=1e-6, msg=f"{tname} #{i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tname", sorted(Q.TEMPLATES))
+def test_batch_raw_makes_no_host_sync(card_ctx, tname):
+    """A batch's ``raw`` queues its work without waiting for the device:
+    ``set_sync_debug_mode("error")`` raises on a blocking copy,
+    ``.item()`` or ``nonzero`` inside it.  The tables and their join
+    indexes are on the card first: ``preload`` moves the columns and
+    indexes the declared-unique keys, and one run of the template builds
+    any other index it probes (q22's on ``o_custkey``), once per table."""
+    card_ctx.preload()
+    compiled = Q.TEMPLATES[tname](card_ctx).lower(engine="compiled").compile()
+    bindings = Q.random_bindings(tname, 4, seed=5)
+    compiled.result(**bindings[0])
+    exe = compiled._batch_executor(4)
+    stacked = {s.name: [b[s.name] for b in bindings]
+               for s in compiled.params()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = exe.raw(card_ctx.catalog, card_ctx.cache, stacked)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for i, b in enumerate(bindings):
+        assert_results_equal(compiled.result(**b).compact(),
+                             exe.finalize_one(out, i).compact(), rtol=1e-6,
+                             msg=f"{tname} #{i}")
+
+
+@pytest.mark.gpu
+def test_async_result_on_card(card_ctx):
+    from repro_torch.core import stages as S
+    compiled = Q.TEMPLATES["q14"](card_ctx).lower(engine="compiled").compile()
+    native = Q.TEMPLATES["q14"](card_ctx).lower(engine="compiled",
+                                                native=True).compile()
+    b = Q.TEMPLATE_BINDINGS["q14"][0]
+    launches = JP.launches
+    handles = [compiled.submit(**b), native.submit(**b),
+               compiled.batch([b, b, b], block=False)[2]]
+    assert JP.launches == launches + 1  # the native submit's probe
+    for h in handles:
+        assert isinstance(h, S.AsyncResult) and h._event is not None
+        assert h.block_until_ready() is h
+        assert h.ready()
+        res = h.result()
+        assert h._out is None and h._event is None  # device refs dropped
+        assert all(isinstance(v, np.ndarray) for v in res.cols.values())
+        assert isinstance(res.mask, np.ndarray)
+        assert_results_equal(compiled(**b), res.compact(), rtol=1e-3)
