@@ -127,7 +127,35 @@ Phases, in order; any failure exits non-zero:
    ``raw`` under ``torch.cuda.set_sync_debug_mode("error")`` (no host
    sync); a batch of 8 q6 bindings with one poisoned (an unknown
    parameter) that fails only that future, the 7 others equal to their
-   sequential results, by bisection.  Its lines are tagged ``[serve]``.
+   sequential results, by bisection.  Its lines are tagged ``[serve]``;
+11. runtime services, after phase 10: (a) the restart -- two fresh
+   processes, each from a fresh copy of ``src/repro_torch`` (what ``git
+   archive`` holds of the package) with an empty ``build/kernels/``,
+   against one new store under ``build/runtime/``, each running the four
+   templates and the nine queries on ``compiled-native`` at the phase's
+   SF after ``preload``; the cold one builds every unit with nvcc (the
+   templates' one at a time, the queries' all at once) and every join
+   index, the warm one must build none: 0 nvcc builds, a ``hit:native``
+   disk hit for every template and query (a hit that needed units and
+   built none; a hit with no unit is ``hit:layout``), at least one unit
+   loaded from the store by each template's compile, no store write or
+   miss, index
+   hits with ``meta`` equal to the cold build's, all three main-path
+   kernels launched (counts reset to 0 before the run, read after),
+   results equal to the cold ones (floats within 1e-5 relative);
+   each template's first-query ms cold / warm-disk / warm-memory (the
+   columns of ``benchmarks/bench_coldstart.py``) and each stored index's
+   load ms against a device rebuild of it; (b) the ladder on the SF
+   context: ``native.kernel`` armed ``first:1`` makes q6 answer from
+   ``compiled`` with one event and the result equal to ``compiled``'s,
+   ``FLARE_DEGRADE=off`` raises ``KernelBudgetError``, a unit nvcc
+   refuses raises ``UnitBuildError`` out of ``compile()`` with no hop;
+   (c) q6 and q19 traced, dumped as Chrome JSON and rebuilt with
+   ``spans_from_chrome``; one ``torch.profiler`` window in which the
+   launch of the ``flare_filter_agg`` kernel, found by the kernel's
+   correlation id, lies inside the ``flare:filter-scalar-agg`` range;
+   ``explain(analyze=True)`` of q6 and q19 naming the fired pattern and
+   the index provenance.  Its lines are tagged ``[runtime]``.
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -295,11 +323,24 @@ def graph_ms(torch, fn, runs: int = 20) -> float:
     return float(np.median(times[1:]))
 
 
+#: Ranges torch.profiler also lists as device events, over the kernels
+#: they enclose: the step's own annotation and the port's kernel scopes
+#: (``repro_torch.obs.export.kernel_scope``, "flare:<pattern>").
+ANNOTATIONS = ("ProfilerStep", "flare:")
+
+
+def device_work(e) -> bool:
+    """Is profiler event ``e`` (or an average of such) a kernel or copy
+    on the device, not an annotation range over them?"""
+    return ("CUDA" in str(getattr(e, "device_type", ""))
+            and not e.key.startswith(ANNOTATIONS)
+            and not getattr(e, "is_user_annotation", False))
+
+
 def in_launch_order(events) -> list:
     """Names of the device events (kernels and copies) among a profile's
     ``events``, by start time."""
-    dev = [e for e in events if "CUDA" in str(getattr(e, "device_type", ""))
-           and not e.name.startswith("ProfilerStep")]
+    dev = [e for e in events if device_work(e)]
     return [e.name for e in sorted(dev, key=lambda e: e.time_range.start)]
 
 
@@ -330,10 +371,7 @@ def profiled(torch, fn, warm=None):
         wall = (time.perf_counter() - t0) * 1e3
         prof.step()
     check(len(done) == 1, "the profiler recorded no step")
-    # the step's own annotation spans its kernels on the device too
-    events = [e for e in done[0][0]
-              if "CUDA" in str(getattr(e, "device_type", ""))
-              and not e.key.startswith("ProfilerStep")]
+    events = [e for e in done[0][0] if device_work(e)]
     return events, wall, done[0][1]
 
 
@@ -349,8 +387,7 @@ def profiled_cold(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if "CUDA" in str(getattr(e, "device_type", ""))]
+    events = [e for e in prof.key_averages() if device_work(e)]
     return events, wall, in_launch_order(prof.events())
 
 
@@ -2260,6 +2297,367 @@ def serving_phase(torch, ctx, Q, FA, SR, JP, seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: runtime services (the store, the ladder, trace export, explain)
+# ---------------------------------------------------------------------------
+
+#: The restart's child: one fresh process on the card, with a store, that
+#: runs the four templates and the nine queries on ``compiled-native`` and
+#: writes what it saw as JSON.  Argument order: store, output, sf, seed,
+#: role ("cold" or "warm").
+RUNTIME_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from repro_torch.core import FlareContext
+from repro_torch.kernels import cuda_build as CB
+from repro_torch.kernels.filter_agg import kernel as FA
+from repro_torch.kernels.join_probe import kernel as JP
+from repro_torch.kernels.segmented_reduce import kernel as SR
+from repro_torch.persist import ArtifactStore
+from repro_torch.persist import store as PS
+from repro_torch.relational import queries as Q
+
+store_dir, out_path, sf, seed, role = (sys.argv[1], sys.argv[2],
+                                       float(sys.argv[3]), int(sys.argv[4]),
+                                       sys.argv[5])
+
+
+def ms(t0):
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def host(res):
+    return {k: np.asarray(v).tolist() for k, v in res.items()}
+
+
+store = ArtifactStore(store_dir)
+ctx = FlareContext(device="cuda", store=store)
+t0 = time.perf_counter()
+Q.register_tpch(ctx, sf=sf, seed=seed)
+out = {"role": role, "build_dir": str(CB.BUILD_DIR),
+       "generate_s": time.perf_counter() - t0}
+torch.ones(8, device="cuda").sum().item()  # runtime bring-up, not billed
+t0 = time.perf_counter()
+ctx.preload()
+out["preload_ms"] = ms(t0)
+names = {id(ctx.catalog.table(n)): n for n in ctx.catalog.names()}
+idx = ctx.cache.indexes
+out["index"] = {"disk_hits": idx.disk_hits, "misses": idx.misses,
+                "meta": {names[k[0]] + ":" + ",".join(k[1]):
+                         e.meta.tolist() for k, (t, e) in idx._entries.items()}}
+for m in (FA, SR, JP):
+    m.launches = 0
+results, out["templates"], out["queries"] = {}, {}, {}
+for name in sorted(Q.TEMPLATES):
+    b = dict(Q.TEMPLATE_BINDINGS[name][0])
+    loads = CB.store_loads
+    t0 = time.perf_counter()
+    c = Q.TEMPLATES[name](ctx).lower(engine="compiled", native=True).compile()
+    units_loaded = CB.store_loads - loads
+    res = c(**b)
+    first = ms(t0)
+    t0 = time.perf_counter()
+    again = Q.TEMPLATES[name](ctx).lower(engine="compiled",
+                                         native=True).compile()
+    again(**b)
+    out["templates"][name] = {
+        "first_ms": first, "warm_memory_ms": ms(t0),
+        "disk_hit": c.stats.disk_hit, "persist": c.stats.persist,
+        "units_loaded": units_loaded,
+        "compile_ms": c.stats.compile_s * 1e3,
+        "memory_hit": again.stats.cache_hit}
+    results["template:" + name] = host(res)
+if role == "cold":   # the suite's other units, one nvcc each, all at once
+    t0 = time.perf_counter()
+    CB.build_all([s for build in Q.QUERIES.values()
+                  for s in build(ctx).lower(native=True).kernel_sources()])
+    out["query_units_build_s"] = time.perf_counter() - t0
+for name, build in Q.QUERIES.items():
+    t0 = time.perf_counter()
+    c = build(ctx).lower(engine="compiled", native=True).compile()
+    results[name] = host(c())
+    out["queries"][name] = {"first_ms": ms(t0), "disk_hit": c.stats.disk_hit,
+                            "persist": c.stats.persist}
+torch.cuda.synchronize()
+out["launches"] = {"filter_agg_general": FA.launches,
+                   "segmented_multi_sum": SR.launches,
+                   "join_probe_agg": JP.launches}
+out["builds"], out["store_loads"] = CB.builds, CB.store_loads
+out["store"] = PS.live_store_stats()
+out["results"] = results
+if role == "warm":   # each stored index: loaded again vs built again
+    rows = []
+    for key, (tbl, entry) in list(idx._entries.items()):
+        t0 = time.perf_counter()
+        digest = PS.index_digest(tbl, key[1], key[2])
+        digest_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loaded = idx._load_persisted(store, digest, tbl, key[1])
+        load_ms = ms(t0)
+        if loaded is None:
+            continue
+        t0 = time.perf_counter()
+        built = idx._build(tbl, key[1], key[2])
+        build_ms = ms(t0)
+        rows.append({"index": names[key[0]] + ":" + ",".join(key[1]),
+                     "rows": tbl.num_rows, "digest_ms": digest_ms,
+                     "load_ms": load_ms, "device_build_ms": build_ms,
+                     "equal": all(torch.equal(getattr(loaded, f),
+                                              getattr(built, f))
+                                  for f in ("perm", "keys", "meta"))})
+    out["index_load_vs_build"] = rows
+out["total_s"] = time.perf_counter() - T_START
+json.dump(out, open(out_path, "w"))
+"""
+
+
+def fresh_checkout(dest: str) -> str:
+    """A copy of the package's sources, as ``git archive`` holds them, at
+    ``dest``, whose ``build/kernels/`` starts empty; returns its ``src``."""
+    import shutil
+    src = os.path.join(dest, "src")
+    shutil.copytree(os.path.join(ROOT, "src", "repro_torch"),
+                    os.path.join(src, "repro_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__", "*.pyc"))
+    return src
+
+
+def restart_child(root: str, role: str, store_dir: str, sf: float,
+                  seed: int) -> dict:
+    """Run :data:`RUNTIME_CHILD` in a fresh process from a fresh copy."""
+    src = fresh_checkout(os.path.join(root, role))
+    out = os.path.join(root, f"{role}.json")
+    env = dict(os.environ, PYTHONPATH=src)
+    env.pop("FLARE_CACHE_DIR", None)
+    t0 = time.perf_counter()
+    code = "import time; T_START = time.perf_counter()\n" + RUNTIME_CHILD
+    proc = subprocess.run([sys.executable, "-c", code, store_dir, out,
+                           str(sf), str(seed), role],
+                          capture_output=True, text=True, env=env,
+                          cwd=os.path.join(root, role), timeout=900)
+    check(proc.returncode == 0, f"the {role} process failed:\n"
+          f"{proc.stderr[-3000:]}")
+    with open(out) as f:
+        got = json.load(f)
+    got["wall_s"] = time.perf_counter() - t0
+    check(got["build_dir"].startswith(os.path.join(root, role)),
+          f"the {role} process built into {got['build_dir']}")
+    return got
+
+
+def results_equal(a: dict, b: dict, rtol: float = 1e-5) -> float:
+    """The largest relative difference of two runs' results; fails on a
+    column, shape or string that differs (float atomics may reorder a
+    sum, so floats agree to ``rtol``)."""
+    check(set(a) == set(b), f"results of {sorted(a)} vs {sorted(b)}")
+    worst = 0.0
+    for q in a:
+        check(set(a[q]) == set(b[q]), f"{q}: columns differ")
+        for k in a[q]:
+            x, y = np.asarray(a[q][k]), np.asarray(b[q][k])
+            check(x.shape == y.shape, f"{q}/{k}: shapes differ")
+            if x.dtype.kind in "OUS" or y.dtype.kind in "OUS":
+                check(x.tolist() == y.tolist(), f"{q}/{k}: strings differ")
+                continue
+            d = np.abs(x.astype(np.float64) - y) / np.maximum(np.abs(y), 1)
+            worst = max(worst, float(d.max(initial=0.0)))
+    check(worst <= rtol, f"warm results differ from cold by {worst}")
+    return worst
+
+
+def restart(torch, sf: float, seed: int) -> None:
+    """Phase 11a: two fresh processes against one new store."""
+    import shutil
+    root = os.path.join(ROOT, "build", "runtime")
+    shutil.rmtree(root, ignore_errors=True)
+    store_dir = os.path.join(root, "store")
+    torch.cuda.empty_cache()
+    cold = restart_child(root, "cold", store_dir, sf, seed)
+    warm = restart_child(root, "warm", store_dir, sf, seed)
+    for role, r in (("cold", cold), ("warm", warm)):
+        log(f"[runtime] {role}: {json.dumps({k: r[k] for k in ('wall_s', 'total_s', 'generate_s', 'preload_ms', 'builds', 'store_loads', 'launches', 'store', 'index')})}")
+    log(f"[runtime] cold query units built at once in "
+        f"{cold['query_units_build_s']:.1f} s")
+    for name in sorted(cold["templates"]):
+        c, w = cold["templates"][name], warm["templates"][name]
+        log(f"[runtime] first query {json.dumps({'template': name, 'cold_ms': c['first_ms'], 'warm_disk_ms': w['first_ms'], 'warm_memory_ms': w['warm_memory_ms'], 'cold_persist': c['persist'], 'warm_persist': w['persist'], 'warm_units_loaded': w['units_loaded'], 'warm_load_ms': w['compile_ms']})}")
+    log(f"[runtime] queries, first run ms cold / warm: "
+        f"{json.dumps({q: [cold['queries'][q]['first_ms'], warm['queries'][q]['first_ms']] for q in cold['queries']})}")
+    for row in warm["index_load_vs_build"]:
+        log(f"[runtime] index {json.dumps(row)}")
+    check(warm["builds"] == 0, f"the warm process ran nvcc "
+          f"{warm['builds']} times")
+    check(cold["builds"] > 0, "the cold process built no unit")
+    check(warm["store_loads"] > 0, "the warm process loaded no unit")
+    misses = [n for n, t in {**warm["templates"], **warm["queries"]}.items()
+              if not t["disk_hit"] or t["persist"] != "hit:native"]
+    check(not misses, f"warm: no native disk hit for {misses}")
+    # "hit:native" says the compile needed units and none was built; that
+    # each template's own units came off the store, its load count says
+    unloaded = [n for n, t in warm["templates"].items()
+                if t["units_loaded"] < 1]
+    check(not unloaded, f"warm: no unit loaded from the store for "
+          f"{unloaded}")
+    we, wi = warm["store"]["exec"], warm["store"]["index"]
+    check(we["writes"] == 0 and we["misses"] == 0,
+          f"warm exec tier: {we}")
+    check(wi["writes"] == 0 and wi["hits"] > 0 and
+          warm["index"]["disk_hits"] > 0, f"warm index tier: {wi}")
+    check(warm["index"]["meta"] == cold["index"]["meta"],
+          "loaded index meta differs from the cold build's")
+    check(all(r["equal"] for r in warm["index_load_vs_build"]),
+          "a loaded index differs from its rebuild")
+    for k, v in warm["launches"].items():
+        check(v > 0, f"the warm process never launched {k}")
+    worst = results_equal(cold["results"], warm["results"])
+    log(f"[runtime] warm results equal cold's (max rel diff {worst})")
+
+
+def ladder_checks(torch, ctx, Q, CB) -> None:
+    """Phase 11b: a recoverable fault hops, typed errors raise."""
+    from repro_torch import resilience as RZ
+    from repro_torch.core import CompileCache
+    from repro_torch.kernels import KernelBudgetError
+    from repro_torch.resilience import degrade as DG
+    b = dict(Q.TEMPLATE_BINDINGS["q6"][0])
+    want = Q.TEMPLATES["q6"](ctx).lower(engine="compiled").compile()(**b)
+    DG.clear_events()
+    with RZ.inject("native.kernel", "first:1"):
+        c = Q.TEMPLATES["q6"](ctx).lower(engine="compiled", native=True) \
+            .compile(cache=CompileCache(), persist=False)
+    got = c(**b)
+    hops = [(d["frm"], d["to"], d["phase"], d["error_type"])
+            for d in c.stats.degraded]
+    check(c.engine_name == "compiled" and hops == [
+        ("compiled-native", "compiled", "compile", "KernelBudgetError")],
+        f"native.kernel first:1 gave {c.engine_name} {hops}")
+    check(len(DG.events()) == 1, f"events {DG.events()}")
+    check(all(np.array_equal(got[k], want[k]) for k in want),
+          f"the degraded q6 {got} differs from compiled's {want}")
+    os.environ["FLARE_DEGRADE"] = "off"
+    try:
+        with RZ.inject("native.kernel", "first:1"):
+            Q.TEMPLATES["q6"](ctx).lower(engine="compiled", native=True) \
+                .compile(cache=CompileCache(), persist=False)
+        raise SmokeFailure("FLARE_DEGRADE=off did not raise")
+    except KernelBudgetError:
+        pass
+    finally:
+        del os.environ["FLARE_DEGRADE"]
+    lowered = Q.TEMPLATES["q6"](ctx).lower(engine="compiled", native=True)
+    lowered._force().kernel_sources = (
+        "#error a unit that does not build\n",)
+    events = len(DG.events())
+    try:
+        lowered.compile(cache=CompileCache(), persist=False)
+        raise SmokeFailure("a unit nvcc refused was absorbed")
+    except CB.UnitBuildError as ex:
+        check(len(DG.events()) == events, "the build failure degraded")
+        log(f"[runtime] ladder: native.kernel first:1 -> {hops}, result "
+            f"equal to compiled; FLARE_DEGRADE=off raised "
+            f"KernelBudgetError; the failed build raised "
+            f"{type(ex).__name__}, no hop")
+
+
+def kernel_range(torch, fn, name: str, kernel: str, tries: int = 5):
+    """Profile one call of ``fn`` (after a warm step, as :func:`profiled`
+    does) until the profile ties every device kernel whose name starts
+    with ``kernel`` to the range ``name``: the runtime call that launched
+    it -- the ``*LaunchKernel*`` event with the kernel's correlation id --
+    starts and ends inside the range.  Other launches inside the range
+    (the fragment's own torch operators) prove nothing.  The profiler
+    misses events now and then, most often the first of its window, so a
+    small torch kernel runs first in each step.  Returns the attempt and
+    the kernel's name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    seen = []
+    for attempt in range(tries):
+        done = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: done.append(
+                         p.profiler.kineto_results.events())) as prof:
+            for _ in range(2):
+                torch.ones(1, device="cuda").sum()
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = done[0] if done else []
+        ranges = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in events if e.name() == name]
+        kernels = [e for e in events if e.device_type() == DeviceType.CUDA
+                   and e.name().startswith(kernel)]
+        launch_of = {e.correlation_id(): e for e in events
+                     if e.device_type() == DeviceType.CPU
+                     and "LaunchKernel" in e.name()}
+        tied = [launch_of.get(k.correlation_id()) for k in kernels]
+        inside = [x for x in tied if x is not None and any(
+            a <= x.start_ns() and x.start_ns() + x.duration_ns() <= b
+            for a, b in ranges)]
+        seen.append((len(ranges), len(kernels),
+                     sum(x is not None for x in tied), len(inside)))
+        if kernels and len(inside) == len(kernels):
+            return attempt, kernels[0].name()
+    raise SmokeFailure(f"no {kernel} launch tied to a {name} range in "
+                       f"{tries} profiles (ranges, kernels, kernels with "
+                       f"their launch, launches inside a range: {seen})")
+
+
+def observability_checks(torch, ctx, Q) -> None:
+    """Phase 11c: Chrome trace, a profiled kernel range, EXPLAIN ANALYZE."""
+    from repro_torch import obs
+    from repro_torch.core import CompileCache
+    with obs.capture() as trace:
+        for name in ("q6", "q19"):
+            Q.QUERIES[name](ctx).lower(engine="compiled", native=True) \
+                .compile(cache=CompileCache(), persist=False)()
+    path = os.path.join(ROOT, "build", "runtime", "trace.json")
+    obs.dump_chrome(path, trace.spans)
+    with open(path) as f:
+        rebuilt = obs.Trace(obs.spans_from_chrome(json.load(f)))
+    check(len(rebuilt.spans) == len(trace.spans), "spans lost in export")
+    ids = {s.span_id for s in rebuilt.spans}
+    check(all(s.parent_id is None or s.parent_id in ids
+              for s in rebuilt.spans), "a span lost its parent")
+    phases = {p: len(rebuilt.find(p)) for p in
+              ("optimize", "dispatch", "lower", "compile", "execute")}
+    check(all(n == 2 for n in phases.values()), f"phases {phases}")
+    log(f"[runtime] chrome trace: {len(rebuilt.spans)} spans, {phases}")
+
+    compiled = Q.QUERIES["q6"](ctx).lower(engine="compiled",
+                                          native=True).compile()
+    compiled()
+    attempt, kernel = kernel_range(torch, compiled, "flare:filter-scalar-agg",
+                                   "flare_filter_agg")
+    log(f"[runtime] profile: the launch of {kernel} (by correlation id) "
+        f"lies inside flare:filter-scalar-agg (profile {attempt + 1})")
+    for name, pattern in (("q6", "filter-scalar-agg"),
+                          ("q19", "join-probe")):
+        text = Q.QUERIES[name](ctx).explain(analyze=True, native=True)
+        dispatch = text.split("== Native Dispatch ==")[1].split("\n\n")[0]
+        check(f"FIRED    {pattern}" in dispatch,
+              f"{name}: explain names no {pattern}")
+        if name == "q19":
+            check("indexed  join-index" in dispatch
+                  and "index_lookup" in text,
+                  "q19: explain gives no index provenance")
+        log(f"[runtime] explain {name}:{dispatch.rstrip()}")
+
+
+def runtime_phase(torch, ctx, Q, CB, sf: float, seed: int) -> None:
+    """Phase 11: the restart through the store, the ladder, trace export
+    and EXPLAIN ANALYZE."""
+    t0 = time.perf_counter()
+    restart(torch, sf, seed)
+    ladder_checks(torch, ctx, Q, CB)
+    observability_checks(torch, ctx, Q)
+    log(f"[runtime] phase 11 took {time.perf_counter() - t0:.1f} s")
+
+
 def run(sf: float, seed: int) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2352,6 +2750,7 @@ def tpch_phases(torch, sf: float, seed: int, fixed, t_all: float) -> list:
                              seed)
     hetero_phase(torch, ctx, seed)
     serving = serving_phase(torch, ctx, Q, FA, SR, JP, seed)
+    runtime_phase(torch, ctx, Q, CB, sf, seed)
     for r in records:
         base = r["name"].split("[")[0]
         if base in serving:

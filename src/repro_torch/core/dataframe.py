@@ -27,6 +27,7 @@ from repro_torch.core import ml as ML
 from repro_torch.core import optimizer as OPT
 from repro_torch.core import plan as P
 from repro_torch.core import stages as S
+from repro_torch.obs import trace as OT
 from repro_torch.relational import table as T
 
 
@@ -34,10 +35,19 @@ class FlareContext:
     """Session object: catalog + device cache + compile cache, on one
     device.  ``device="cuda"`` (the default) raises when no CUDA device
     is available: the context never carries on on the CPU unless asked
-    to with ``device="cpu"``."""
+    to with ``device="cpu"``.
+
+    ``store`` attaches a persistent artifact store
+    (:class:`repro_torch.persist.ArtifactStore`) as the disk tier under
+    this context's compile and index caches; when None, the ambient
+    ``$FLARE_CACHE_DIR`` store (if set) is used.  Either way a fresh
+    process loads the kernel units and join indexes that an earlier
+    process built.
+    """
 
     def __init__(self, device: Union[str, torch.device] = "cuda",
-                 optimize: bool = True, join_reorder: bool = False):
+                 optimize: bool = True, join_reorder: bool = False,
+                 store: Optional[Any] = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -47,7 +57,8 @@ class FlareContext:
             raise ValueError(f"unsupported device {device}")
         self.device = device
         self.catalog = P.Catalog()
-        self.cache = ENG.DeviceCache(device)
+        self.store = store
+        self.cache = ENG.DeviceCache(device, store=store)
         self.compile_cache = S.CompileCache()
         self.optimize = optimize
         self.join_reorder = join_reorder
@@ -73,8 +84,9 @@ class FlareContext:
     def optimized(self, plan: P.Plan) -> P.Plan:
         if not self.optimize:
             return plan
-        return OPT.optimize(plan, self.catalog,
-                            join_reorder=self.join_reorder)
+        with OT.span("optimize", join_reorder=self.join_reorder):
+            return OPT.optimize(plan, self.catalog,
+                                join_reorder=self.join_reorder)
 
     def execute(self, plan: P.Plan, engine: str,
                 stats: Optional[ENG.CompileStats] = None,
@@ -267,7 +279,23 @@ class DataFrame:
               params: Optional[Dict[str, Any]] = None) -> int:
         return self.ctx.execute(self.plan, engine, params=params).num_rows()
 
-    def explain(self, optimized: bool = True) -> str:
+    def explain(self, optimized: bool = True, analyze: bool = False,
+                engine: str = "compiled", native: bool = False,
+                params: Optional[Dict[str, Any]] = None,
+                join_index: bool = True) -> str:
+        """The optimized plan tree -- or, with ``analyze=True``, EXPLAIN
+        ANALYZE: the query executes once for ``engine`` under the tracer
+        (:mod:`repro_torch.obs`) and the report annotates the plan with
+        rows/columns/bytes per scan, per-phase wall times
+        (optimize/dispatch/lower/compile/persist/execute), compile and
+        disk-tier provenance, and -- with ``native=True`` -- which kernel
+        patterns fired or fell back and why, and per join where its index
+        came from.  Prepared templates need their bindings via
+        ``params=``."""
+        if analyze:
+            from repro_torch.obs import analyze as OA
+            return OA.explain_analyze(self, engine=engine, native=native,
+                                      params=params, join_index=join_index)
         plan = self.ctx.optimized(self.plan) if optimized else self.plan
         return "== Physical Plan ==\n" + plan.explain()
 

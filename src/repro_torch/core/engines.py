@@ -36,7 +36,10 @@ from repro_torch.core import ml as ML
 from repro_torch.core import plan as P
 from repro_torch.core.lower import TORCH_OF
 from repro_torch.obs import metrics as OM
+from repro_torch.obs import trace as OT
+from repro_torch.persist import store as PS
 from repro_torch.relational import table as T
+from repro_torch.resilience import faults as FZ
 
 # Pipeline breakers.  MapBatches breaks on the stage engine by design:
 # Spark treats UDFs as black boxes and materialises around them (paper
@@ -66,7 +69,11 @@ def cache_stats() -> Dict[str, Dict[str, Any]]:
     per cache ``kind`` -- ``compile`` (query templates and their batched
     programs), ``index`` (build-side join indexes), ``device`` (resident
     columns) -- the keys ``caches``, ``entries``, ``hits``, ``misses``,
-    ``hit_rate``.  Exactly ``repro_torch.obs.snapshot()["caches"]``."""
+    ``hit_rate``; ``compile`` and ``index`` also carry a nested ``disk``
+    dict (the summed :class:`repro_torch.persist.TierStats` of every live
+    :class:`repro_torch.persist.ArtifactStore`, zeros when none), so a
+    memory miss served from disk can be told from a build.  Exactly
+    ``repro_torch.obs.snapshot()["caches"]``."""
     return OM.cache_section()
 
 
@@ -153,16 +160,30 @@ class IndexCache:
     Declared-unique key columns (``Field.unique``) are verified against
     the data when the index is built: a false declaration fails loudly
     instead of silently mis-validating filtered build sides.
+
+    ``store`` (or, when None, the ambient ``$FLARE_CACHE_DIR`` store) is
+    the disk tier: a memory miss first tries the store's ``index``
+    artifact, whose digest covers the raw key-column bytes (changed data
+    can never hit a stale index), and a fresh build writes through.  The
+    artifact carries ``perm``, ``keys`` and ``meta``: a loaded index
+    takes the same probe route as a fresh one.  ``disk_hits`` counts the
+    builds this cache skipped by loading.
     """
 
     kind = "index"
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 store: Optional["PS.ArtifactStore"] = None):
         self.device = device
         self._entries: Dict[Tuple, Tuple[T.Table, JoinIndex]] = {}
         self.hits = 0
         self.misses = 0
+        self.disk_hits = 0
+        self.store = store
         register_cache(self)
+
+    def _store(self) -> Optional["PS.ArtifactStore"]:
+        return self.store if self.store is not None else PS.default_store()
 
     @staticmethod
     def _key(tbl: T.Table, key_cols: Tuple[str, ...],
@@ -178,11 +199,76 @@ class IndexCache:
         hit = self._entries.get(key)
         if hit is not None:
             self.hits += 1
+            with OT.span("index_lookup", keys=",".join(key_cols),
+                         outcome="hit"):
+                pass
             return hit[1]
         self.misses += 1
-        entry = self._build(tbl, tuple(key_cols), tuple(doms))
+        key_cols, doms = tuple(key_cols), tuple(doms)
+        with OT.span("index_lookup", keys=",".join(key_cols),
+                     rows=tbl.num_rows) as sp:
+            store = self._store()
+            entry = None
+            if store is not None:
+                digest = PS.index_digest(tbl, key_cols, doms)
+                entry = self._load_persisted(store, digest, tbl, key_cols)
+                if entry is not None:
+                    self.disk_hits += 1
+                    sp.set(outcome="disk_hit")
+            if entry is None:
+                with OT.span("index_build", keys=",".join(key_cols),
+                             rows=tbl.num_rows):
+                    FZ.fault_point("index.build", keys=",".join(key_cols))
+                    entry = self._build(tbl, key_cols, doms)
+                sp.set(outcome="built")
+                if store is not None:
+                    self._save_persisted(store, digest, entry)
         self._entries[key] = (tbl, entry)
         return entry
+
+    def _load_persisted(self, store: "PS.ArtifactStore", digest: str,
+                        tbl: T.Table, key_cols: Tuple[str, ...]
+                        ) -> Optional[JoinIndex]:
+        loaded = store.load("index", digest)
+        if loaded is None:
+            return None
+        header, sections = loaded
+        meta = header.get("meta", {})
+        try:
+            n = int(meta["n"])
+            unique = bool(meta["unique"])
+            if len(sections) != 3:
+                raise ValueError("expected perm + keys + meta sections")
+            perm = np.frombuffer(sections[0], np.int32)
+            keys = np.frombuffer(sections[1], np.int32)
+            facts = np.frombuffer(sections[2], np.int32)
+            if len(perm) != n or len(keys) != n or n != tbl.num_rows \
+                    or len(facts) != 3:
+                raise ValueError("length mismatch")
+        except (KeyError, TypeError, ValueError):
+            store.demote_hit("index", "corrupt")
+            return None
+        # the declared-unique contract is verified against the data at
+        # build time; the digest pins the data, so replaying the saved
+        # verdict keeps a false declaration failing loudly here too
+        declared = any(tbl.schema[c].unique for c in key_cols)
+        if declared and not unique:
+            raise ValueError(
+                f"column(s) {list(key_cols)} are declared unique "
+                f"(Field.unique) but hold duplicate keys")
+        dev = self.device
+        return JoinIndex(torch.from_numpy(perm.copy()).to(dev),
+                         torch.from_numpy(keys.copy()).to(dev), unique,
+                         torch.from_numpy(facts.copy()).to(dev))
+
+    @staticmethod
+    def _save_persisted(store: "PS.ArtifactStore", digest: str,
+                        entry: JoinIndex) -> None:
+        host = [t.cpu().numpy().astype(np.int32, copy=False)
+                for t in (entry.perm, entry.keys, entry.meta)]
+        store.save("index", digest,
+                   {"n": int(len(host[0])), "unique": bool(entry.unique)},
+                   [a.tobytes() for a in host])
 
     def _build(self, tbl: T.Table, key_cols: Tuple[str, ...],
                doms: Tuple[int, ...]) -> JoinIndex:
@@ -217,14 +303,15 @@ class IndexCache:
 class DeviceCache:
     """Caches device-resident columns per (table, column name), in the
     engine's 32-bit device dtypes.  ``indexes`` is the companion
-    :class:`IndexCache` with the same lifetime."""
+    :class:`IndexCache` with the same lifetime, over ``store``."""
 
     kind = "device"
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 store: Optional["PS.ArtifactStore"] = None):
         self.device = device
         self._cache: Dict[Tuple, Tuple[T.Table, torch.Tensor]] = {}
-        self.indexes = IndexCache(device)
+        self.indexes = IndexCache(device, store=store)
         register_cache(self)
 
     def __len__(self) -> int:
@@ -253,11 +340,24 @@ class CompileStats:
 
     ``lower_s`` covers plan -> function, ``compile_s`` building the
     template's native kernels (nvcc on a CUDA device; nothing on the
-    CPU), ``run_s`` the last execution including the copy of the result
-    to the host.  ``cache_hit`` is True when the
-    :class:`repro_torch.core.stages.CompileCache` already held the
-    template.  ``dispatch`` is the native dispatch report
+    CPU) or loading them from the store, ``run_s`` the last execution
+    including the copy of the result to the host.  ``cache_hit`` is True
+    when the :class:`repro_torch.core.stages.CompileCache` already held
+    the template.  ``dispatch`` is the native dispatch report
     (:class:`repro_torch.native.registry.DispatchReport`).
+
+    ``disk_hit`` is True when the template came off the persistent store
+    tier; ``persist`` is the disk tier's disposition for this compile:
+    "hit:native" (its kernel units loaded from the stored libraries, no
+    nvcc), "hit:portable" (the units rebuilt from the stored sources),
+    "hit:layout" (a compile that needs no unit reused the stored layout
+    and nothing else), "written", "unsupported: ...", or "" when no store
+    was in play.
+
+    ``degraded`` is the degradation-ladder provenance: one dict per
+    recorded hop (:class:`repro_torch.resilience.degrade.DegradeEvent`)
+    when a recoverable failure re-lowered this template on a weaker rung
+    -- empty on the happy path.
     """
 
     trace_compile_s: float = 0.0
@@ -268,6 +368,9 @@ class CompileStats:
     engine: str = ""
     cache_key: Optional[Tuple] = None
     dispatch: Optional[Any] = None
+    disk_hit: bool = False
+    persist: str = ""
+    degraded: Tuple[Dict[str, Any], ...] = ()
 
 
 def require_param(params: Optional[Dict[str, Any]], spec: E.Param):

@@ -880,6 +880,36 @@ def required_scan_columns(p: P.Plan, catalog: P.Catalog) -> Dict[int, List[str]]
     return out
 
 
+def scan_paths(p: P.Plan) -> Dict[int, Tuple[int, ...]]:
+    """Map ``id(Scan)`` -> root-to-scan child-index path.
+
+    The path is a *structural* identity: it survives plan rebuilds
+    (optimizer rewrites, ``with_children`` copies) that change every
+    node's address, so it is the right key to hand to observability
+    layers that outlive the plan object they were computed from.
+    """
+    out: Dict[int, Tuple[int, ...]] = {}
+
+    def rec(node: P.Plan, path: Tuple[int, ...]) -> None:
+        if isinstance(node, P.Scan):
+            out[id(node)] = path
+        for i, c in enumerate(node.children()):
+            rec(c, path + (i,))
+
+    rec(p, ())
+    return out
+
+
+def required_scan_columns_by_path(
+        p: P.Plan, catalog: P.Catalog) -> Dict[Tuple[int, ...], List[str]]:
+    """:func:`required_scan_columns`, keyed by child-index path instead
+    of ``id(node)`` -- stable across plan copies and GC address reuse."""
+    needed = required_scan_columns(p, catalog)
+    paths = scan_paths(p)
+    return {paths[sid]: cols for sid, cols in needed.items()
+            if sid in paths}
+
+
 @dataclasses.dataclass
 class Result:
     """Execution result: padded host columns + validity mask + schema."""

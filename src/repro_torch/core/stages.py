@@ -3,7 +3,8 @@
     lowered  = df.lower(engine="compiled", native=True)  # optimized + lowered
     lowered.plan()                   # inspect the optimized plan
     lowered.dispatch_report()        # which kernel patterns fired
-    compiled = lowered.compile()     # builds the native kernels (nvcc)
+    compiled = lowered.compile()     # builds the native kernels (nvcc),
+                                     # or loads them from the store
     compiled(**params)               # execute (many times, cheap)
     compiled.submit(**params)        # dispatch only: an AsyncResult
     compiled.batch([b1, b2, ...])    # many bindings as ONE vmapped call
@@ -17,6 +18,16 @@ runtime scalar of the kernels, never part of their source.
 PyTorch runs eagerly, so "compiling" a template means building its
 lowered function and, for native templates on a CUDA device, every
 kernel unit its fragments need (``repro_torch.kernels.cuda_build``).
+
+Two runtime services sit under ``compile`` and the executors:
+
+* the persistent store tier (:mod:`repro_torch.persist`): a memory miss
+  first tries the template's ``exec`` artifact, whose native tier loads
+  the kernel units' libraries without nvcc; a fresh compile writes
+  through (``Lowered.compile(persist=...)``, ``FLARE_CACHE_DIR``);
+* the degradation ladder (:mod:`repro_torch.resilience.degrade`): a
+  failure on its closed allowlist re-lowers the template on the next
+  rung, recorded on ``CompileStats.degraded``.
 
 Besides ``compiled`` (and ``compiled-native``), the registry holds the
 paper's comparison points: ``stage`` (stage-granular execution with host
@@ -38,8 +49,12 @@ from repro_torch.core import expr as E
 from repro_torch.core import lower as L
 from repro_torch.core import ml as ML
 from repro_torch.core import plan as P
+from repro_torch.obs import export as OX
 from repro_torch.obs import trace as OT
+from repro_torch.persist import executable as PX
+from repro_torch.persist import store as PSTORE
 from repro_torch.relational import table as T
+from repro_torch.resilience import degrade as DG
 from repro_torch.resilience import faults as FZ
 
 CompileStats = ENG.CompileStats
@@ -155,6 +170,8 @@ class _WholeQueryArtifact:
     schema: Optional[T.Schema]
     # kernel units the plan's native fragments launch (built by compile)
     kernel_sources: Tuple[str, ...]
+    # patterns of the plan's native fragments (plan-walk order)
+    patterns: Tuple[str, ...] = ()
 
 
 def _marshal_args(layout, index_layout, catalog: P.Catalog,
@@ -173,19 +190,23 @@ def _marshal_args(layout, index_layout, catalog: P.Catalog,
     return args
 
 
-def kernel_sources(p: P.Plan) -> Tuple[str, ...]:
-    """Kernel units of every native fragment in ``p`` (plan-walk order)."""
-    out: List[str] = []
+def _native_ops(p: P.Plan) -> List[P.Plan]:
+    """Every native fragment in ``p`` (plan-walk order)."""
+    out: List[P.Plan] = []
 
     def rec(n: P.Plan):
-        sources = getattr(n, "kernel_sources", None)
-        if sources is not None:
-            out.extend(sources())
+        if getattr(n, "kernel_sources", None) is not None:
+            out.append(n)
         for c in n.children():
             rec(c)
 
     rec(p)
-    return tuple(out)
+    return out
+
+
+def kernel_sources(p: P.Plan) -> Tuple[str, ...]:
+    """Kernel units of every native fragment in ``p`` (plan-walk order)."""
+    return tuple(src for op in _native_ops(p) for src in op.kernel_sources())
 
 
 class WholeQueryEngine:
@@ -206,12 +227,15 @@ class WholeQueryEngine:
         layout = tuple((smap[sid], tuple(names)) for sid, names in id_layout)
         schema = (None if isinstance(p, P.IterativeKernel)
                   else p.schema(catalog))
-        return _WholeQueryArtifact(fn, layout, tuple(index_layout),
-                                   param_specs, out_info, schema,
-                                   kernel_sources(p))
+        ops = _native_ops(p)
+        return _WholeQueryArtifact(
+            fn, layout, tuple(index_layout), param_specs, out_info, schema,
+            tuple(src for op in ops for src in op.kernel_sources()),
+            tuple(op.pattern for op in ops))
 
     def compile(self, artifact: _WholeQueryArtifact,
                 device: torch.device) -> Executor:
+        FZ.fault_point("compile.xla")
         if device.type == "cuda" and artifact.kernel_sources:
             from repro_torch.kernels import cuda_build
             cuda_build.build_all(artifact.kernel_sources)
@@ -254,6 +278,138 @@ def whole_query_executor(artifact: _WholeQueryArtifact) -> Executor:
     run.raw = raw            # deferred-sync protocol (AsyncResult)
     run.finalize = finalize
     return run
+
+
+# ---------------------------------------------------------------------------
+# the persistent store tier under the CompileCache
+# ---------------------------------------------------------------------------
+
+
+def _resolve_store(persist: Any, device_cache: ENG.DeviceCache
+                   ) -> Optional["PSTORE.ArtifactStore"]:
+    """The store governing one compile: ``persist=False`` disables, an
+    :class:`repro_torch.persist.ArtifactStore` selects explicitly, None
+    defers to the device cache's store and then ``$FLARE_CACHE_DIR``."""
+    if persist is False:
+        return None
+    if persist is not None:
+        return persist
+    return device_cache.indexes._store()
+
+
+def _exec_digest(key: Tuple, bucket: Optional[int] = None) -> str:
+    """Content address of one template artifact: the (process-
+    independent) template key, extended for a batched program with its
+    bucket -- mirroring the in-memory CompileCache keying."""
+    if bucket is None:
+        return PSTORE.stable_digest("exec", key)
+    return PSTORE.stable_digest("exec", key, ("batch", bucket))
+
+
+def _persistable(engine_name: str, p: P.Plan) -> Tuple[bool, str]:
+    if engine_name not in PX.PERSISTABLE_ENGINES:
+        return False, (f"engine {engine_name!r} has no compiled "
+                       f"whole-query template")
+    return PX.plan_persistable(p)
+
+
+def _artifact_meta(artifact: _WholeQueryArtifact, engine_name: str,
+                   bucket: Optional[int]) -> Dict[str, Any]:
+    """The layout an artifact must agree with: engine, bucket, param
+    specs, argument and output counts, result kind."""
+    n_args = (sum(len(names) for _, names in artifact.layout)
+              + 3 * len(artifact.index_layout) + len(artifact.param_specs))
+    schema = artifact.schema
+    return {"engine": engine_name, "bucket": bucket,
+            "params": [[s.name, s.dtype] for s in artifact.param_specs],
+            "n_args": n_args,
+            "n_out": None if schema is None else len(schema.names) + 1,
+            "kind": "value" if schema is None else "relational"}
+
+
+def _units(artifact: _WholeQueryArtifact, device: torch.device) -> List[str]:
+    """The kernel units a compile on ``device`` needs: none on the CPU,
+    where every fragment runs its plain version."""
+    if device.type != "cuda":
+        return []
+    return PX.unit_list(artifact.kernel_sources)
+
+
+def _load_persisted_exec(store: "PSTORE.ArtifactStore", digest: str,
+                         artifact: _WholeQueryArtifact, engine_name: str,
+                         device: torch.device,
+                         bucket: Optional[int] = None) -> str:
+    """Ready the lowered ``artifact`` from its store artifact; returns the
+    disposition ("hit:native" / "hit:portable" / "hit:layout"), or "" on
+    a miss.
+
+    The stored layout must equal the artifact's (else ``corrupt``) and
+    the stored unit sources the ones the plan generates now (else the
+    artifact is stale: ``version_miss``).  A compile that needs no unit
+    (plain ``compiled``, its batch programs, a native plan where no
+    fragment fired, any compile on the CPU) reuses only the layout:
+    "hit:layout", whatever the envelope.  Otherwise, on a full envelope
+    match the native tier loads each unit's library from the artifact's
+    bytes (no nvcc); on any drift the portable tier builds the units
+    from the sources.  Failures fall back to a fresh compile; an nvcc
+    failure raises.
+    """
+    loaded = store.load("exec", digest, envelope_keys=("format",))
+    if loaded is None:
+        return ""
+    header, sections = loaded
+    meta = header.get("meta") or {}
+    try:
+        sources, libraries = PX.unpack_units(meta, sections)
+    except ValueError:
+        store.demote_hit("exec", "corrupt")
+        return ""
+    expect = _artifact_meta(artifact, engine_name, bucket)
+    if any(meta.get(k) != v for k, v in expect.items()):
+        store.demote_hit("exec", "corrupt")
+        return ""
+    units = _units(artifact, device)
+    if sources != PX.unit_list(artifact.kernel_sources):
+        store.demote_hit("exec", "version_miss")
+        return ""
+    if not units:
+        return "hit:layout"
+    native = header.get("envelope") == store.current_envelope()
+    from repro_torch.kernels import cuda_build
+    if native and len(libraries) == len(units):
+        try:
+            for src, lib in zip(units, libraries):
+                cuda_build.load_library(src, lib)
+            return "hit:native"
+        except OSError:
+            pass  # unloadable bytes: the portable tier rebuilds them
+    cuda_build.build_all(units)
+    return "hit:portable"
+
+
+def _save_persisted_exec(store: "PSTORE.ArtifactStore", digest: str,
+                         artifact: _WholeQueryArtifact, engine_name: str,
+                         device: torch.device,
+                         bucket: Optional[int] = None) -> str:
+    """Write-through after a fresh compile: the layout metadata, the
+    units' sources and, on a CUDA device, their libraries.  Never
+    raises: a failure is counted and the compile result stands."""
+    units = _units(artifact, device)
+    libraries = []
+    if units:
+        from repro_torch.kernels import cuda_build
+        for src in units:
+            data = cuda_build.library_bytes(src)
+            if data is None:
+                store.tier("exec").errors += 1
+                return "error: unit library missing"
+            libraries.append(data)
+    meta = _artifact_meta(artifact, engine_name, bucket)
+    unit_meta, sections = PX.pack_units(
+        PX.unit_list(artifact.kernel_sources), libraries)
+    meta.update(unit_meta)
+    path = store.save("exec", digest, meta, sections)
+    return "written" if path else "error: write failed"
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +590,10 @@ class Lowered:
         self._dispatch_report = dispatch_report
         self._artifact: Any = None
         self._lower_s = 0.0
+        # re-lower source for the degradation ladder: the pre-rewrite plan
+        # and lowering kwargs, stashed by lower_plan().  None for directly
+        # constructed Lowered objects (no ladder).
+        self._degrade_src: Optional[Dict[str, Any]] = None
 
     @property
     def engine_name(self) -> str:
@@ -483,30 +643,92 @@ class Lowered:
                 self._lower_s = time.perf_counter() - t0
         return self._artifact
 
-    def compile(self, cache: Optional[CompileCache] = None) -> "Compiled":
-        """Compile (or fetch) the executor of this template."""
+    def compile(self, cache: Optional[CompileCache] = None,
+                persist: Any = None) -> "Compiled":
+        """Compile (or fetch) the executor of this template.
+
+        Lookup order: memory (``cache``), then the persistent store tier
+        -- ``persist`` names an :class:`repro_torch.persist.ArtifactStore`,
+        ``False`` disables the disk tier, None (the default) uses the
+        context's store and then the ambient ``$FLARE_CACHE_DIR``.  A
+        disk hit loads the template's kernel units (no nvcc on the native
+        tier), promotes the template to memory and sets
+        ``stats.disk_hit``; a fresh compile writes through.
+
+        Failures on the recoverable allowlist (:func:`repro_torch.
+        resilience.degrade.recoverable`) re-lower on the next rung of the
+        degradation ladder instead of raising, recording the hop on
+        ``stats.degraded``; ``FLARE_DEGRADE=off`` disables this.  An nvcc
+        failure is not on the list: it raises.
+        """
+        try:
+            return self._compile_inner(cache, persist)
+        except Exception as err:
+            low, event = DG.next_lowered(self._degrade_src,
+                                         self._engine.name, err, "compile")
+            if low is None:
+                raise
+            compiled = low.compile(persist=persist)
+            compiled.stats.degraded = ((event.to_dict(),)
+                                       + tuple(compiled.stats.degraded))
+            return compiled
+
+    def _compile_inner(self, cache: Optional[CompileCache],
+                       persist: Any) -> "Compiled":
         cache = cache if cache is not None else self._compile_cache
         stats = CompileStats(engine=self._engine.name, cache_key=self._key,
                              dispatch=self._dispatch_report)
+        store = _resolve_store(persist, self._device_cache)
+        device = self._device_cache.device
         with OT.span("compile", engine=self._engine.name) as csp:
             exe = cache.lookup(self._key)
             if exe is None:
+                can_persist = False
+                if store is not None:
+                    can_persist, reason = _persistable(self._engine.name,
+                                                       self._plan)
+                    if not can_persist:
+                        store.tier("exec").unsupported += 1
+                        stats.persist = f"unsupported: {reason}"
                 artifact = self._force()
-                t0 = time.perf_counter()
-                exe = self._engine.compile(artifact,
-                                           self._device_cache.device)
-                stats.compile_s = time.perf_counter() - t0
                 stats.lower_s = self._lower_s
-                cache.insert(self._key, exe)
+                if can_persist:
+                    with OT.span("persist", op="load") as psp:
+                        t0 = time.perf_counter()
+                        disposition = _load_persisted_exec(
+                            store, _exec_digest(self._key), artifact,
+                            self._engine.name, device)
+                        psp.set(outcome=disposition or "miss")
+                    if disposition:
+                        exe = whole_query_executor(artifact)
+                        stats.compile_s = time.perf_counter() - t0
+                        stats.disk_hit = True
+                        stats.persist = disposition
+                        cache.insert(self._key, exe)
+                if exe is None:
+                    t0 = time.perf_counter()
+                    exe = self._engine.compile(artifact, device)
+                    stats.compile_s = time.perf_counter() - t0
+                    cache.insert(self._key, exe)
+                    if can_persist:
+                        with OT.span("persist", op="save") as psp:
+                            stats.persist = _save_persisted_exec(
+                                store, _exec_digest(self._key), artifact,
+                                self._engine.name, device)
+                            psp.set(outcome=stats.persist)
             else:
                 stats.cache_hit = True
             stats.trace_compile_s = stats.lower_s + stats.compile_s
             csp.set(cache="hit" if stats.cache_hit else "miss",
+                    disk="hit" if stats.disk_hit else "miss",
                     compile_s=round(stats.compile_s, 6),
                     lower_s=round(stats.lower_s, 6))
+            if stats.persist:
+                csp.set(persist=stats.persist)
         return Compiled(exe, self._plan, self._catalog, self._engine.name,
                         self._param_specs, self._key, self._device_cache,
-                        stats, compile_cache=cache)
+                        stats, compile_cache=cache, store=store,
+                        degrade_src=self._degrade_src)
 
 
 def _ready_event(device: torch.device) -> Optional[Any]:
@@ -618,10 +840,10 @@ def _slice(value: Any, i: int) -> Any:
     return value
 
 
-def compile_batch_executor(p: P.Plan, catalog: P.Catalog,
-                           param_specs: Tuple[E.Param, ...],
-                           bucket: int) -> BatchExecutor:
-    """Build the ``bucket``-wide batched program of a template.
+def batch_artifact(p: P.Plan, catalog: P.Catalog,
+                   param_specs: Tuple[E.Param, ...],
+                   bucket: int) -> _WholeQueryArtifact:
+    """Lower the ``bucket``-wide batched program of a template.
 
     The single-binding function is vmapped over the param axis
     (:func:`repro_torch.core.lower.build_batch_callable`): scan columns
@@ -633,11 +855,7 @@ def compile_batch_executor(p: P.Plan, catalog: P.Catalog,
     batched program runs the single-binding function once per row of the
     stack and stacks the outputs -- the same result, one dispatch per
     binding (the JAX package vmaps its ``lax.while_loop``).
-
-    The fault site ``compile.xla`` fires here, where the program is
-    built (:mod:`repro_torch.resilience.faults`).
     """
-    FZ.fault_point("compile.xla", bucket=bucket)
     if isinstance(p, P.IterativeKernel):
         fn, id_layout, index_layout, out_info = L.build_callable(
             p, catalog, param_specs)
@@ -653,14 +871,33 @@ def compile_batch_executor(p: P.Plan, catalog: P.Catalog,
     smap = ENG.scan_map(p)
     layout = tuple((smap[sid], tuple(names)) for sid, names in id_layout)
     schema = None if out_info is None else p.schema(catalog)
-    executor = whole_query_executor(_WholeQueryArtifact(
-        bfn, layout, tuple(index_layout), param_specs, out_info, schema,
-        ()))
+    return _WholeQueryArtifact(bfn, layout, tuple(index_layout),
+                               param_specs, out_info, schema, ())
+
+
+def batch_executor(artifact: _WholeQueryArtifact,
+                   bucket: int) -> BatchExecutor:
+    """Wrap a lowered batched program into a :class:`BatchExecutor`."""
+    executor = whole_query_executor(artifact)
 
     def finalize_one(out, i: int):
         return executor.finalize(_slice(out, i))
 
     return BatchExecutor(executor.raw, finalize_one, bucket)
+
+
+def compile_batch_executor(p: P.Plan, catalog: P.Catalog,
+                           param_specs: Tuple[E.Param, ...], bucket: int,
+                           artifact: Optional[_WholeQueryArtifact] = None
+                           ) -> BatchExecutor:
+    """Build the ``bucket``-wide batched program of a template
+    (:func:`batch_artifact`, unless already lowered as ``artifact``).
+    The fault site ``compile.xla`` fires here, where the program is built
+    (:mod:`repro_torch.resilience.faults`)."""
+    FZ.fault_point("compile.xla", bucket=bucket)
+    if artifact is None:
+        artifact = batch_artifact(p, catalog, param_specs, bucket)
+    return batch_executor(artifact, bucket)
 
 
 #: Engines whose Compiled objects support vmap-coalesced batching.  The
@@ -686,7 +923,9 @@ class Compiled:
                  engine_name: str, param_specs: Tuple[E.Param, ...],
                  key: Tuple, device_cache: ENG.DeviceCache,
                  stats: CompileStats,
-                 compile_cache: Optional[CompileCache] = None):
+                 compile_cache: Optional[CompileCache] = None,
+                 store: Optional["PSTORE.ArtifactStore"] = None,
+                 degrade_src: Optional[Dict[str, Any]] = None):
         self._exe = exe
         self._plan = p
         self._catalog = catalog
@@ -696,7 +935,12 @@ class Compiled:
         self._device_cache = device_cache
         self.stats = stats
         self._compile_cache = compile_cache
+        self._store = store
         self._last_trace: Optional[OT.Trace] = None
+        self._degrade_src = degrade_src
+        # sticky execution-time fallback: set by the first recoverable
+        # execution failure, every later call routes straight to it
+        self._degraded_to: Optional["Compiled"] = None
 
     def params(self) -> Tuple[E.Param, ...]:
         return self._param_specs
@@ -715,10 +959,36 @@ class Compiled:
             raise TypeError(f"unknown parameter(s) {extra}; this template "
                             f"takes {sorted(known)}")
 
+    def _degrade_for(self, err: BaseException) -> Optional["Compiled"]:
+        """Build (and pin) the execution-time fallback Compiled for a
+        recoverable failure; None when the ladder must not engage."""
+        low, event = DG.next_lowered(self._degrade_src, self.engine_name,
+                                     err, "execute")
+        if low is None:
+            return None
+        fb = low.compile()
+        self.stats.degraded = (tuple(self.stats.degraded)
+                               + (event.to_dict(),)
+                               + tuple(fb.stats.degraded))
+        self._degraded_to = fb
+        return fb
+
     def result(self, **params: Any) -> L.Result:
         """The padded :class:`repro_torch.core.lower.Result`, or a
         :class:`repro_torch.core.lower.ValueResult` for a ``train()``
-        plan."""
+        plan.  A recoverable failure answers from the next rung of the
+        degradation ladder (and every later call goes there)."""
+        if self._degraded_to is not None:
+            return self._degraded_to.result(**params)
+        try:
+            return self._result_inner(**params)
+        except Exception as err:
+            fb = self._degrade_for(err)
+            if fb is None:
+                raise
+            return fb.result(**params)
+
+    def _result_inner(self, **params: Any) -> L.Result:
         self._check_bindings(params)
         if not OT.TRACER.on:  # hot path: no tracing machinery
             t0 = time.perf_counter()
@@ -726,11 +996,16 @@ class Compiled:
             self.stats.run_s = time.perf_counter() - t0
             return out
         mark = OT.TRACER.watermark()
-        with OT.span("execute", engine=self.engine_name, mode="sync") as sp:
+        with OT.span("execute", engine=self.engine_name, mode="sync") as sp, \
+                OX.device_annotation(f"flare:execute:{self.engine_name}"):
             t0 = time.perf_counter()
             out = self._exe(self._catalog, self._device_cache, params or None)
             self.stats.run_s = time.perf_counter() - t0
         sp.set(run_s=round(self.stats.run_s, 6))
+        try:
+            sp.set(rows=out.num_rows())
+        except Exception:
+            pass
         self._last_trace = OT.Trace(OT.TRACER.since(mark))
         return out
 
@@ -741,6 +1016,17 @@ class Compiled:
         Engines without a deferred path (stage, volcano, tuple) run
         eagerly behind an already-ready handle, so the API is uniform
         across engines."""
+        if self._degraded_to is not None:
+            return self._degraded_to.submit(**params)
+        try:
+            return self._submit_inner(**params)
+        except Exception as err:
+            fb = self._degrade_for(err)
+            if fb is None:
+                raise
+            return fb.submit(**params)
+
+    def _submit_inner(self, **params: Any) -> AsyncResult:
         self._check_bindings(params)
         raw = getattr(self._exe, "raw", None)
         tracing = OT.TRACER.on
@@ -798,11 +1084,36 @@ class Compiled:
 
         A param-free template degenerates to perfect coalescing: every
         request is the same execution, run once and shared.  Engines
-        other than ``compiled`` raise ``TypeError``.
+        other than ``compiled`` raise ``TypeError``.  A recoverable
+        failure answers from the next rung of the degradation ladder,
+        per binding where that rung cannot batch.
         """
         bindings = [dict(b) for b in bindings]
         if not bindings:
             return []
+        if self._degraded_to is not None:
+            return self._batch_on(self._degraded_to, bindings, block)
+        try:
+            return self._batch_inner(bindings, block)
+        except Exception as err:
+            fb = self._degrade_for(err)
+            if fb is None:
+                raise
+            return self._batch_on(fb, bindings, block)
+
+    @staticmethod
+    def _batch_on(fb: "Compiled", bindings: List[Dict[str, Any]],
+                  block: bool) -> List[Any]:
+        """Run a batch on the fallback rung: vmap-coalesced when the rung
+        supports it, per-binding dispatch otherwise (the answer is the
+        same)."""
+        if fb.engine_name in _BATCHABLE_ENGINES:
+            return fb.batch(bindings, block=block)
+        handles = [fb.submit(**b) for b in bindings]
+        return [h.result() for h in handles] if block else handles
+
+    def _batch_inner(self, bindings: List[Dict[str, Any]],
+                     block: bool) -> List[Any]:
         if self.engine_name not in _BATCHABLE_ENGINES:
             raise TypeError(
                 f"batched execution requires one of {_BATCHABLE_ENGINES} "
@@ -839,17 +1150,50 @@ class Compiled:
         key = self.cache_key + (("batch", bucket),)
         cache = self._compile_cache
         exe = cache.lookup(key) if cache is not None else None
-        if exe is None:
-            with OT.span("compile", engine=self.engine_name, kind="batch",
-                         bucket=bucket) as csp:
-                t0 = time.perf_counter()
-                exe = compile_batch_executor(self._plan, self._catalog,
-                                             self._param_specs, bucket)
-                self.stats.compile_s += time.perf_counter() - t0
-                csp.set(cache="miss",
-                        compile_s=round(time.perf_counter() - t0, 6))
-                if cache is not None:
-                    cache.insert(key, exe)
+        if exe is not None:
+            return exe
+        with OT.span("compile", engine=self.engine_name, kind="batch",
+                     bucket=bucket) as csp:
+            store = self._store
+            can_persist = False
+            artifact = None
+            if store is not None:
+                can_persist, _ = _persistable(self.engine_name, self._plan)
+            if can_persist:
+                with OT.span("persist", op="load", bucket=bucket) as psp:
+                    t0 = time.perf_counter()
+                    artifact = batch_artifact(self._plan, self._catalog,
+                                              self._param_specs, bucket)
+                    disposition = _load_persisted_exec(
+                        store, _exec_digest(self.cache_key, bucket),
+                        artifact, self.engine_name,
+                        self._device_cache.device, bucket=bucket)
+                    psp.set(outcome=disposition or "miss")
+                if disposition:
+                    exe = batch_executor(artifact, bucket)
+                    self.stats.compile_s += time.perf_counter() - t0
+                    self.stats.disk_hit = True
+                    if not self.stats.persist.startswith("hit"):
+                        self.stats.persist = disposition
+                    if cache is not None:
+                        cache.insert(key, exe)
+                    csp.set(cache="miss", disk="hit")
+                    return exe
+            t0 = time.perf_counter()
+            exe = compile_batch_executor(self._plan, self._catalog,
+                                         self._param_specs, bucket,
+                                         artifact=artifact)
+            self.stats.compile_s += time.perf_counter() - t0
+            csp.set(cache="miss", disk="miss",
+                    compile_s=round(time.perf_counter() - t0, 6))
+            if cache is not None:
+                cache.insert(key, exe)
+            if can_persist:
+                with OT.span("persist", op="save", bucket=bucket):
+                    _save_persisted_exec(
+                        store, _exec_digest(self.cache_key, bucket),
+                        artifact, self.engine_name,
+                        self._device_cache.device, bucket=bucket)
         return exe
 
     def count(self, **params: Any) -> int:
@@ -915,8 +1259,17 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
     ``join_index=False`` disables the build-side join index cache: every
     join sorts its build keys in the program (and ``join-probe``, which
     needs the index, cannot fire).
+
+    The returned ``Lowered`` carries the pre-rewrite plan and these
+    arguments as its degradation-ladder source
+    (:mod:`repro_torch.resilience.degrade` re-lowers from there on a
+    weaker rung).
     """
     dispatch_report = None
+    degrade_src = dict(plan=p, catalog=catalog, engine=engine,
+                       device_cache=device_cache,
+                       compile_cache=compile_cache, native=native,
+                       join_index=join_index)
     if native and engine == "compiled":
         engine = "compiled-native"
     elif native and engine != "compiled-native":
@@ -930,10 +1283,13 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
     if engine not in ("compiled", "compiled-native"):
         # the stage and interpreted engines probe no cached join index
         key = template_key(engine, p, catalog)
-        return Lowered(p, catalog, eng, P.params_of(p), key, device_cache,
-                       compile_cache)
+        lowered = Lowered(p, catalog, eng, P.params_of(p), key,
+                          device_cache, compile_cache)
+        lowered._degrade_src = degrade_src
+        return lowered
     if join_index:
-        index_specs, decisions = L.join_index_plan(p, catalog)
+        with OT.span("index_plan"):
+            index_specs, decisions = L.join_index_plan(p, catalog)
     else:
         index_specs = {}
         decisions = [(j, None, "join index cache disabled "
@@ -946,5 +1302,7 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
     dispatch_report = _add_index_decisions(dispatch_report, decisions)
     specs = P.params_of(p)
     key = template_key(engine, p, catalog, index_specs=index_specs)
-    return Lowered(p, catalog, eng, specs, key, device_cache, compile_cache,
-                   dispatch_report=dispatch_report)
+    lowered = Lowered(p, catalog, eng, specs, key, device_cache,
+                      compile_cache, dispatch_report=dispatch_report)
+    lowered._degrade_src = degrade_src
+    return lowered

@@ -19,6 +19,14 @@ kernel launches:
 The device policy is :func:`on_card`, and it looks only at the tensor it
 is given: a CPU tensor takes the plain version, a CUDA tensor the kernel --
 or an exception.  Nothing catches a build or launch failure to fall back.
+
+Two error types matter to the degradation ladder
+(``repro_torch.resilience.degrade``): :class:`KernelBudgetError` is raised
+only by eligibility and geometry checks before a launch, and the ladder
+answers it from a weaker rung only while a template compiles -- raised
+by a wrapper's argument checks at execute time it propagates;
+:class:`UnsupportedDeviceError` says that no kernel exists for the device
+at all, and the ladder never absorbs it.
 """
 from __future__ import annotations
 
@@ -49,15 +57,23 @@ class KernelBudgetError(ValueError):
     means a caller bypassed eligibility."""
 
 
+class UnsupportedDeviceError(RuntimeError):
+    """No kernel and no plain version exists for a tensor's device (a
+    device that is neither CUDA nor the CPU, or a card older than sm_90).
+    Not a geometry refusal: the degradation ladder must not absorb it,
+    since a weaker rung would hide that the kernel never ran."""
+
+
 def on_card(t: torch.Tensor) -> bool:
     """True when ``t`` lives on a CUDA device (launch the kernel), False
-    for a CPU tensor (run the plain version).  Any other device raises."""
+    for a CPU tensor (run the plain version).  Any other device raises
+    :class:`UnsupportedDeviceError`."""
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
         return False
-    raise KernelBudgetError(f"no kernel or plain version for device "
-                            f"{t.device}")
+    raise UnsupportedDeviceError(f"no kernel or plain version for device "
+                                 f"{t.device}")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

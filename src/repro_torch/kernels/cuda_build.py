@@ -12,23 +12,30 @@ A fixed unit (:func:`fixed_unit`) is one csrc file on its own, with no
 generated body: the attention kernels.  It builds with the same flags;
 its inner products call ``fmaf`` by name, which ``--fmad=false`` leaves
 fused.
+
+A unit may also come from the persistent artifact store
+(``repro_torch.persist``): :func:`load_library` takes its library's
+bytes, writes them once to a file named by their own hash (``ctypes``
+loads files) and registers the loaded library for the unit's source, so
+neither :func:`build` nor nvcc runs for it in this process.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
-from repro_torch.kernels import KernelBudgetError
+from repro_torch.kernels import UnsupportedDeviceError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -41,8 +48,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: nvcc invocations made by this process (a cached library costs none).
 builds = 0
 
+#: Libraries this process loaded from store bytes (:func:`load_library`).
+store_loads = 0
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# unit source -> the file its loaded library came from
+_lib_files: Dict[str, Path] = {}
 _entries: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
@@ -63,12 +75,36 @@ def fixed_unit(name: str) -> str:
     return header(name)
 
 
+class UnitBuildError(RuntimeError):
+    """nvcc refused a kernel unit.  A real build failure: the degradation
+    ladder never absorbs it (``repro_torch.resilience.degrade``)."""
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
         raise RuntimeError("nvcc not found: the CUDA kernels are built "
                            "with the CUDA toolkit at first use")
     return found
+
+
+@functools.lru_cache(maxsize=None)
+def nvcc_release() -> Optional[str]:
+    """The CUDA toolkit release nvcc builds with (``version.json`` beside
+    the toolkit's ``bin/``, else ``nvcc --version``); None without one."""
+    try:
+        nvcc = nvcc_path()
+    except RuntimeError:
+        return None
+    meta = Path(nvcc).resolve().parents[1] / "version.json"
+    try:
+        return json.loads(meta.read_text())["cuda_nvcc"]["version"]
+    except (OSError, KeyError, TypeError, ValueError):
+        pass
+    out = subprocess.run([nvcc, "--version"], capture_output=True,
+                         text=True, timeout=60)
+    lines = out.stdout.strip().splitlines()
+    return lines[-1] if lines else None
 
 
 def library_path(src: str) -> Path:
@@ -92,8 +128,8 @@ def build(src: str) -> Path:
         proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                                str(cu)], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {cu.name}:\n"
-                               f"{proc.stderr[-4000:]}")
+            raise UnitBuildError(f"nvcc failed on {cu.name}:\n"
+                                 f"{proc.stderr[-4000:]}")
         os.replace(tmp, path)
         with _lock:
             builds += 1
@@ -105,8 +141,9 @@ def build(src: str) -> Path:
 
 
 def build_all(sources: Iterable[str]) -> List[Path]:
-    """Build every distinct unit, one nvcc process each, concurrently."""
-    todo = sorted(set(sources))
+    """Build every distinct unit, one nvcc process each, concurrently.
+    A unit whose library is already loaded (from the store) is skipped."""
+    todo = sorted(set(sources) - set(_libs))
     if not todo:
         return []
     workers = min(len(todo), os.cpu_count() or 1)
@@ -118,9 +155,48 @@ def load(src: str) -> ctypes.CDLL:
     """The loaded library of unit ``src`` (built on first use)."""
     lib = _libs.get(src)
     if lib is None:
-        lib = ctypes.CDLL(str(build(src)))
+        path = build(src)
+        lib = ctypes.CDLL(str(path))
         with _lock:
             _libs[src] = lib
+            _lib_files[src] = path
+    return lib
+
+
+def library_bytes(src: str) -> Optional[bytes]:
+    """The library of unit ``src`` as bytes: the file it was loaded from,
+    else its build output; None when neither exists."""
+    path = _lib_files.get(src, library_path(src))
+    try:
+        return path.read_bytes()
+    except OSError:
+        return None
+
+
+def load_library(src: str, data: bytes) -> ctypes.CDLL:
+    """Load unit ``src`` from its library's bytes (a store artifact).
+
+    The bytes go to a file named by their own sha256, written once and
+    atomically, never by the artifact's digest: a replaced artifact has
+    other bytes, hence another file, so ``ctypes`` can never hand back
+    its handle of the old one.  Runs no nvcc (``builds`` is unchanged);
+    counts ``store_loads``.  A unit already loaded keeps its library."""
+    global store_loads
+    lib = _libs.get(src)
+    if lib is not None:
+        return lib
+    path = BUILD_DIR / "store" / (
+        f"flare_lib_{hashlib.sha256(data).hexdigest()[:32]}.so")
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}_{threading.get_ident()}.tmp")
+        tmp.write_bytes(data)
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    with _lock:
+        _libs[src] = lib
+        _lib_files[src] = path
+        store_loads += 1
     return lib
 
 
@@ -147,7 +223,7 @@ def check_device(t: torch.Tensor) -> None:
     """The units are built for sm_90a only."""
     cap, _ = _device_facts(t.device.index or 0)
     if cap < (9, 0):
-        raise KernelBudgetError(
+        raise UnsupportedDeviceError(
             f"the CUDA kernels are built for sm_90a (Hopper); device "
             f"{t.device} has compute capability {cap[0]}.{cap[1]}")
 

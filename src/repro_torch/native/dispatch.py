@@ -11,6 +11,15 @@ whole-query function as the surrounding operators.
 
 The report's ``mode`` says where the fragment runs: "cuda" (the kernel,
 on a CUDA device) or "torch" (its plain version, on the CPU).
+
+Each match attempt bumps the JAX package's dispatch counters
+(``dispatch.rewrites``, ``dispatch.fired[.<pattern>]``,
+``dispatch.fallback[.<pattern>]``; ``obs.metrics.dispatch_section``) and
+the pass leaves ``dispatch`` / ``dispatch.match`` spans.  Every launch of
+a fragment runs inside ``obs.export.kernel_scope("flare:<pattern>")``, so
+a profile shows each kernel under its pattern name.  The fault site
+``native.kernel`` fires once per fragment where ``compiled-native``
+compiles the template (:class:`NativeWholeQueryEngine`).
 """
 from __future__ import annotations
 
@@ -24,6 +33,10 @@ from repro_torch.core import plan as P
 from repro_torch.core import stages as S
 from repro_torch.native import patterns as PAT
 from repro_torch.native import registry as R
+from repro_torch.obs import export as OX
+from repro_torch.obs import metrics as OM
+from repro_torch.obs import trace as OT
+from repro_torch.resilience import faults as FZ
 
 
 @dataclasses.dataclass(eq=False)
@@ -68,11 +81,13 @@ class NativeOp(P.Plan):
         rec(self.child, needed)
 
     def lower_stream(self, catalog, scans, params) -> L.Stream:
-        if self.custom_lower:
-            return self.emitter(catalog, scans, params)
-        boundary = PAT.boundary_of(self.child)
-        bstream = L.lower_node(boundary, catalog, scans, params)
-        return self.emitter(bstream, params)
+        with OX.kernel_scope(f"flare:{self.pattern}",
+                             nvtx=self.mode == "cuda"):
+            if self.custom_lower:
+                return self.emitter(catalog, scans, params)
+            boundary = PAT.boundary_of(self.child)
+            bstream = L.lower_node(boundary, catalog, scans, params)
+            return self.emitter(bstream, params)
 
 
 def rewrite_plan(p: P.Plan, catalog: P.Catalog, device: torch.device,
@@ -86,33 +101,46 @@ def rewrite_plan(p: P.Plan, catalog: P.Catalog, device: torch.device,
     index (``join-probe``): without it there is nothing to search."""
     mode = "cuda" if device.type == "cuda" else "torch"
     report = R.DispatchReport()
+    OM.REGISTRY.inc("dispatch.rewrites")
 
     def rule(n: P.Plan):
         if not isinstance(n, P.Aggregate):
             return None
-        reasons = []
-        # one fragment walk per node, shared by the sibling matchers
-        shared = PAT.match_fragment(n, catalog)
-        for pat in R.patterns():
-            if pat.requires_index and not join_index:
-                continue
-            frag = pat.matcher(n, catalog, shared)
-            if frag is None:
-                continue
-            ok, reason = pat.eligibility(frag, catalog)
-            if not ok:
-                reasons.append(f"{pat.name}: {reason}")
-                continue
-            report.add(R.Decision(pattern=pat.name, node=n.describe(),
-                                  fired=True, mode=mode, reason="ok"))
-            return NativeOp(n, pat.name, pat.emitter(frag, catalog), mode,
-                            custom_lower=pat.custom_lower)
-        why = "; ".join(reasons) if reasons else "no pattern matched"
-        report.add(R.Decision(pattern="", node=n.describe(), fired=False,
-                              mode="", reason=why))
+        with OT.span("dispatch.match", node=n.describe()) as sp:
+            reasons = []
+            # one fragment walk per node, shared by the sibling matchers
+            shared = PAT.match_fragment(n, catalog)
+            for pat in R.patterns():
+                if pat.requires_index and not join_index:
+                    continue
+                frag = pat.matcher(n, catalog, shared)
+                if frag is None:
+                    continue
+                ok, reason = pat.eligibility(frag, catalog)
+                if not ok:
+                    reasons.append(f"{pat.name}: {reason}")
+                    continue
+                report.add(R.Decision(pattern=pat.name, node=n.describe(),
+                                      fired=True, mode=mode, reason="ok"))
+                OM.REGISTRY.inc("dispatch.fired")
+                OM.REGISTRY.inc(f"dispatch.fired.{pat.name}")
+                sp.set(fired=pat.name, mode=mode)
+                return NativeOp(n, pat.name, pat.emitter(frag, catalog),
+                                mode, custom_lower=pat.custom_lower)
+            why = "; ".join(reasons) if reasons else "no pattern matched"
+            report.add(R.Decision(pattern="", node=n.describe(),
+                                  fired=False, mode="", reason=why))
+            OM.REGISTRY.inc("dispatch.fallback")
+            for r in reasons:
+                OM.REGISTRY.inc("dispatch.fallback." + r.split(":", 1)[0])
+            sp.set(fired="", reason=why)
         return None
 
-    return P.transform(p, rule), report
+    with OT.span("dispatch", mode=mode) as dsp:
+        out = P.transform(p, rule)
+        dsp.set(fired=len(report.fired), fallbacks=len(report.fallbacks),
+                patterns=",".join(report.fired_patterns()) or "none")
+    return out, report
 
 
 class NativeWholeQueryEngine(S.WholeQueryEngine):
@@ -121,6 +149,14 @@ class NativeWholeQueryEngine(S.WholeQueryEngine):
     runs the pass before it looks the engine up)."""
 
     name = "compiled-native"
+
+    def compile(self, artifact, device: torch.device):
+        # trust boundary: a fragment's kernel can be refused here, where
+        # the template prepares its kernels (the JAX package checks the
+        # same site while tracing each fragment, inside its compile)
+        for pattern in artifact.patterns:
+            FZ.fault_point("native.kernel", pattern=pattern)
+        return super().compile(artifact, device)
 
 
 S.register_engine(NativeWholeQueryEngine())

@@ -6,18 +6,15 @@
 * live stat-bearing objects (the compile, device and index caches, query
   servers) register into weak-ref domains at construction
   (``engines.register_cache`` is a shim over :data:`REGISTRY`);
-* point events with no owning object (served requests rejected or
-  poisoned, faults fired) bump named counters via
-  :meth:`MetricsRegistry.inc`;
-* :func:`snapshot` composes the aggregate view: the ``engines.
-  cache_stats()`` dict under ``"caches"``, every live server's
-  ServeStats under ``"serve"``, raw counters, the armed fault plan's
-  counts, and the tracer state.
-
-The JAX package's snapshot (``repro.obs.metrics``) also carries its
-persistent store's tiers, its native-dispatch counters and its
-degradation events; the port has none of those modules yet, so its
-snapshot leaves those sections out.
+* point events with no owning object (native dispatch decisions, served
+  requests rejected or poisoned, faults fired, degradations) bump named
+  counters via :meth:`MetricsRegistry.inc`;
+* :func:`snapshot` composes the aggregate view, with the JAX package's
+  sections (``repro.obs.metrics``): the ``engines.cache_stats()`` dict
+  under ``"caches"``, the persist tiers under ``"disk"``, dispatch
+  fire/fallback counts under ``"dispatch"``, every live server's
+  ServeStats under ``"serve"``, raw counters, the armed fault plan and
+  the degradation events under ``"resilience"``, and the tracer state.
 """
 from __future__ import annotations
 
@@ -72,7 +69,9 @@ REGISTRY = MetricsRegistry()
 def cache_section() -> Dict[str, Dict[str, Any]]:
     """The ``engines.cache_stats()`` aggregate: per cache ``kind`` the
     live-cache count, total entries, summed hits/misses and combined hit
-    rate (the JAX package's schema without its ``disk`` tiers)."""
+    rate, with the persist store tiers nested under ``disk`` for compile
+    and index."""
+    from repro_torch.persist import store as PS  # lazy: persist imports obs
     out: Dict[str, Dict[str, Any]] = {}
     for cache in REGISTRY.objects("cache"):
         kind = getattr(type(cache), "kind", "other")
@@ -85,7 +84,30 @@ def cache_section() -> Dict[str, Dict[str, Any]]:
     for agg in out.values():
         total = agg["hits"] + agg["misses"]
         agg["hit_rate"] = round(agg["hits"] / total, 4) if total else 0.0
+    disk = PS.live_store_stats()
+    if "compile" in out:
+        out["compile"]["disk"] = disk["exec"]
+    if "index" in out:
+        out["index"]["disk"] = disk["index"]
     return out
+
+
+def dispatch_section() -> Dict[str, Any]:
+    """Cumulative native-dispatch decisions (bumped per pattern match
+    attempt in ``repro_torch.native.dispatch.rewrite_plan``)."""
+    counters = REGISTRY.counters()
+    patterns: Dict[str, Dict[str, int]] = {}
+    for name, n in counters.items():
+        for verdict in ("fired", "fallback"):
+            prefix = f"dispatch.{verdict}."
+            if name.startswith(prefix):
+                pat = name[len(prefix):]
+                patterns.setdefault(pat, {"fired": 0, "fallback": 0})
+                patterns[pat][verdict] += n
+    return {"fired": counters.get("dispatch.fired", 0),
+            "fallbacks": counters.get("dispatch.fallback", 0),
+            "rewrites": counters.get("dispatch.rewrites", 0),
+            "patterns": patterns}
 
 
 def serve_section() -> List[Dict[str, Any]]:
@@ -101,13 +123,20 @@ def serve_section() -> List[Dict[str, Any]]:
 def snapshot() -> Dict[str, Any]:
     """The one process-wide telemetry view (superset of
     ``engines.cache_stats()``, which returns this dict's ``caches``)."""
-    from repro_torch.resilience import faults as FZ  # lazy: imports obs
+    from repro_torch.persist import store as PS  # lazy: persist imports obs
+    from repro_torch.resilience import degrade as DG  # lazy: imports obs
+    from repro_torch.resilience import faults as FZ
     plan = FZ.active()
     return {
         "caches": cache_section(),
+        "disk": PS.live_store_stats(),
+        "dispatch": dispatch_section(),
         "serve": serve_section(),
         "counters": REGISTRY.counters(),
-        "resilience": {"faults": plan.counts() if plan is not None else {}},
+        "resilience": {
+            "faults": plan.counts() if plan is not None else {},
+            "degrade": DG.stats(),
+        },
         "trace": {**OT.TRACER.stats(),
                   "phases": OT.Trace(OT.TRACER.spans()).phase_totals()},
     }

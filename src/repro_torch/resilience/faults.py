@@ -1,22 +1,25 @@
 """Deterministic fault injection at named trust boundaries.
 
 Every place the engine crosses into something that can fail for reasons
-outside the query's control calls :func:`fault_point` with its site
-name.  With no plan armed that call is a single module-global load (the
-same near-free discipline as ``repro_torch.obs.trace``); with a plan
+outside the query's control -- the disk artifact store, the program and
+kernel-unit build, a native fragment's preparation, the join-index
+builder, a coalesced serve dispatch -- calls :func:`fault_point` with its
+site name.  With no plan armed that call is a single module-global load
+(the same near-free discipline as ``repro_torch.obs.trace``); with a plan
 armed, the site consults its schedule and raises the site's
 characteristic error type, so the failure takes the real recovery path
-(the server's bisection) rather than a synthetic one.
+(store quarantine, degradation ladder, serve bisection) rather than a
+synthetic one.
 
 Arming::
 
     from repro_torch import resilience as RZ
-    with RZ.inject("serve.dispatch", "first:1"):
-        server.flush()                    # the first dispatch fails
+    with RZ.inject("native.kernel", "first:1"):
+        df.lower(native=True).compile()   # the native compile fails
 
 or for subprocesses::
 
-    FLARE_FAULTS="serve.dispatch:every:2,compile.xla:p:0.25" \\
+    FLARE_FAULTS="persist.load:every:2,compile.xla:p:0.25" \\
         python workload.py
 
 Schedules are deterministic: ``first:N`` fires the first N checks,
@@ -27,20 +30,25 @@ faults``) alike.  Every arm/fire is counted in the MetricsRegistry
 (``faults.armed.<site>`` / ``faults.fired.<site>``) and each fire drops
 a ``fault`` trace span.
 
-The sites are the JAX package's names for the boundaries the port has:
+The sites carry the JAX package's names and error types:
 
-* ``serve.dispatch`` -- one coalesced dispatch of the query server;
-* ``compile.xla`` -- where the port builds a template's batched program
-  (``stages.compile_batch_executor``).  The port has no XLA; the name is
-  kept so that a ``FLARE_FAULTS`` spec means the same in both packages.
-  The JAX package also checks it when it compiles a single binding's
-  program, where its degradation ladder catches the fault; the port has
-  no ladder yet and checks it at the batched build only.
+* ``persist.load`` / ``persist.save`` -- reading and writing a store
+  artifact (``repro_torch.persist.store``);
+* ``compile.xla`` -- where the port builds a template's program: a single
+  binding's (``stages.WholeQueryEngine.compile``, before the nvcc build of
+  its units) and a batched one (``stages.compile_batch_executor``).  The
+  port has no XLA; the name is kept so that a ``FLARE_FAULTS`` spec means
+  the same in both packages;
+* ``native.kernel`` -- once per native fragment, where the compile of a
+  ``compiled-native`` template prepares its kernels
+  (``native.dispatch.NativeWholeQueryEngine.compile``).  The JAX package
+  checks it while tracing the fragment, inside its compile; the port's
+  fragments lower on every call, so the site sits at compile time;
+* ``index.build`` -- a join-index build (``core.engines.IndexCache``);
+* ``serve.dispatch`` -- one coalesced dispatch of the query server.
 
-The JAX package's other sites (``persist.load``, ``persist.save``,
-``native.kernel``, ``index.build``, ``morsel.loop``) arrive with the
-modules that cross those boundaries; arming one here raises
-``ValueError`` as an unknown site.
+The JAX package's ``morsel.loop`` site arrives with ``core/morsel.py``;
+arming it here raises ``ValueError`` as an unknown site.
 """
 from __future__ import annotations
 
@@ -55,7 +63,17 @@ from repro_torch.obs import trace as OT
 
 class CompileFault(RuntimeError):
     """Injected failure of a template's program build (site
-    ``compile.xla``, the JAX package's ``XlaCompileFault``)."""
+    ``compile.xla``, the JAX package's ``XlaCompileFault``).  The
+    degradation ladder treats it as a failed build of this rung."""
+
+
+class IndexBuildError(RuntimeError):
+    """Join-index construction failed (injected or infrastructural).
+
+    Distinct from :class:`repro_torch.core.engines.UnindexableKeyError`,
+    which is a *data* property (int32 overflow) and is never injected
+    here.
+    """
 
 
 class DispatchFault(RuntimeError):
@@ -66,9 +84,29 @@ class DispatchFault(RuntimeError):
     """
 
 
-#: site name -> factory for the site's characteristic error.
+def _store_corrupt(site: str) -> Exception:
+    from repro_torch.persist.store import StoreCorrupt
+    return StoreCorrupt(f"injected fault at {site}")
+
+
+def _os_error(site: str) -> Exception:
+    return OSError(f"injected fault at {site}")
+
+
+def _kernel_budget(site: str) -> Exception:
+    from repro_torch.kernels import KernelBudgetError
+    return KernelBudgetError(f"injected fault at {site}")
+
+
+#: site name -> factory for the site's characteristic error.  The error
+#: type matches what the real failure would raise, so injection
+#: exercises the production recovery path at each boundary.
 SITES: Dict[str, Callable[[str], Exception]] = {
+    "persist.load": _store_corrupt,
+    "persist.save": _os_error,
     "compile.xla": lambda s: CompileFault(f"injected fault at {s}"),
+    "native.kernel": _kernel_budget,
+    "index.build": lambda s: IndexBuildError(f"injected fault at {s}"),
     "serve.dispatch": lambda s: DispatchFault(f"injected fault at {s}"),
 }
 

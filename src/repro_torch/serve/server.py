@@ -32,6 +32,7 @@ from repro_torch.core import stages as S
 from repro_torch.core.dataframe import FlareContext
 from repro_torch.obs import metrics as OM
 from repro_torch.obs import trace as OT
+from repro_torch.persist import store as PS
 from repro_torch.resilience import faults as FZ
 from repro_torch.serve.stats import ServeStats
 
@@ -255,23 +256,27 @@ class QueryServer:
                 compiled._batch_executor(ENG.batch_bucket(b))
 
     def preload(self, buckets: Iterable[int] = (1,)) -> int:
-        """Ready the whole template set at startup: :meth:`warmup` with
-        its startup telemetry attached.  ``stats.preloaded`` and
-        ``preload_s`` record what happened (``QueryServer(ctx,
-        warm_start=True)`` runs this from the constructor).  Returns the
-        number of templates readied.
+        """Ready the whole template set at startup, serving templates
+        from the persistent artifact store where possible.
 
-        ``stats.disk_hits`` counts programs served from a persistent
-        store; the port has none yet, so it stays 0 -- what the JAX
-        package counts with no ``$FLARE_CACHE_DIR``.
+        This is :meth:`warmup` with its startup telemetry attached: each
+        template (and its batched programs for ``buckets``) is fetched
+        through the memory-then-disk cache hierarchy, so with a populated
+        ``$FLARE_CACHE_DIR`` a fresh server process loads its templates'
+        kernel units instead of building them.  ``stats.preloaded``,
+        ``disk_hits`` (store artifacts served) and ``preload_s`` record
+        what happened (``QueryServer(ctx, warm_start=True)`` runs this
+        from the constructor).  Returns the number of templates readied.
         """
         t0 = time.perf_counter()
+        before = PS.live_store_stats()["exec"]["hits"]
         for name in sorted(self.templates):
             compiled = self.compiled_for(name)
             if compiled.params():
                 for b in buckets:
                     compiled._batch_executor(ENG.batch_bucket(b))
             self.stats.preloaded += 1
+        self.stats.disk_hits += PS.live_store_stats()["exec"]["hits"] - before
         self.stats.preload_s += time.perf_counter() - t0
         return self.stats.preloaded
 

@@ -45,8 +45,9 @@ class ServeStats:
 
     ``preloaded``/``disk_hits``/``preload_s`` describe startup: how many
     templates :meth:`repro_torch.serve.QueryServer.preload` readied, how
-    many executables came from a persistent store instead of being built
-    (0 until the port has one), and what the warm start cost.
+    many template artifacts came from the persistent store
+    (:mod:`repro_torch.persist`) instead of being built, and what the warm
+    start cost.
     """
 
     submitted: int = 0

@@ -841,3 +841,76 @@ def test_async_result_on_card(card_ctx):
         assert all(isinstance(v, np.ndarray) for v in res.cols.values())
         assert isinstance(res.mask, np.ndarray)
         assert_results_equal(compiled(**b), res.compact(), rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# runtime services on the card: the store's native tier and the ladder
+# ---------------------------------------------------------------------------
+
+_STORE_CHILD = """
+import json, sys
+from repro_torch.core import CompileCache, FlareContext
+from repro_torch.kernels import cuda_build as CB
+from repro_torch.kernels.filter_agg import kernel as FA
+from repro_torch.persist import ArtifactStore
+from repro_torch.relational import queries as Q
+ctx = FlareContext(device="cuda", store=ArtifactStore(sys.argv[1]))
+Q.register_tpch(ctx, sf=0.05)
+c = Q.TEMPLATES["q6"](ctx).lower(engine="compiled", native=True).compile(
+    cache=CompileCache())
+res = c(**dict(Q.TEMPLATE_BINDINGS["q6"][0]))
+print(json.dumps({"builds": CB.builds, "store_loads": CB.store_loads,
+                  "launches": FA.launches, "disk_hit": c.stats.disk_hit,
+                  "persist": c.stats.persist,
+                  "revenue": float(res["revenue"][0])}))
+"""
+
+
+@pytest.mark.gpu
+def test_native_template_store_roundtrip_on_card(card, tmp_path):
+    """A fresh process loads q6's kernel unit from the store written here:
+    no nvcc, the library from the artifact's bytes, the kernel launched,
+    the same revenue (rtol 1e-5: the same kernel on the same data)."""
+    import json
+    import os
+    import subprocess
+    from repro_torch.core import CompileCache
+    from repro_torch.persist import ArtifactStore
+    store = ArtifactStore(tmp_path / "store")
+    ctx = FlareContext(device="cuda", store=store)
+    Q.register_tpch(ctx, sf=0.05)
+    c = Q.TEMPLATES["q6"](ctx).lower(engine="compiled", native=True) \
+        .compile(cache=CompileCache())
+    want = c(**dict(Q.TEMPLATE_BINDINGS["q6"][0]))
+    assert c.stats.persist == "written"
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    env.pop("FLARE_CACHE_DIR", None)
+    proc = subprocess.run([sys.executable, "-c", _STORE_CHILD,
+                           str(tmp_path / "store")], capture_output=True,
+                          text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["disk_hit"] and got["persist"] == "hit:native"
+    assert got["builds"] == 0 and got["store_loads"] == 1
+    assert got["launches"] > 0
+    np.testing.assert_allclose(got["revenue"], want["revenue"][0],
+                               rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_unit_build_failure_is_not_absorbed_by_the_ladder(card_ctx):
+    """A unit nvcc refuses, built through the compile path, raises out of
+    ``compile()`` with the ladder on; nothing degrades."""
+    from repro_torch.core import CompileCache
+    from repro_torch.kernels import cuda_build as CB
+    from repro_torch.resilience import degrade as DG
+    DG.clear_events()
+    lowered = Q.TEMPLATES["q6"](card_ctx).lower(engine="compiled",
+                                                native=True)
+    artifact = lowered._force()
+    artifact.kernel_sources = ("#error a unit that does not build\n",)
+    assert DG.enabled()
+    with pytest.raises(CB.UnitBuildError):
+        lowered.compile(cache=CompileCache(), persist=False)
+    assert DG.events() == ()

@@ -317,9 +317,13 @@ def test_f32_literals_are_exact(x):
 
 
 def test_device_policy_and_argument_checks():
-    from repro_torch.kernels import check_columns, check_mask
-    with pytest.raises(KernelBudgetError):
+    from repro_torch.kernels import (UnsupportedDeviceError, check_columns,
+                                     check_mask)
+    # no kernel for the device: a type the degradation ladder does not
+    # absorb (a KernelBudgetError would quietly degrade)
+    with pytest.raises(UnsupportedDeviceError) as ei:
         on_card(torch.empty(1, device="meta"))
+    assert not isinstance(ei.value, KernelBudgetError)
     cpu = torch.device("cpu")
     with pytest.raises(KernelBudgetError, match="contiguous"):
         check_columns("k", [torch.zeros(4, dtype=torch.int64)],
