@@ -128,7 +128,23 @@ Phases, in order; any failure exits non-zero:
    sync); a batch of 8 q6 bindings with one poisoned (an unknown
    parameter) that fails only that future, the 7 others equal to their
    sequential results, by bisection.  Its lines are tagged ``[serve]``;
-11. runtime services, after phase 10: (a) the restart -- two fresh
+12. out-of-core morsel execution, after phase 10 on the same context:
+   q1, q3, q6 and ``join_micro`` on ``compiled`` and ``compiled-native``
+   at ``memory_budget`` 8 GiB (every query fits whole: no loop), 1 GiB,
+   256 MiB and 64 MiB (q6: 1 / 2 / 8 / 29 morsels at SF 10), each run
+   against the monolithic ``compiled`` run (rtol 5e-3; integer columns
+   exactly, except a native run whose kernel counted more than 2^24
+   rows in one launch in its f32 slot) with the monolithic run's fired
+   patterns, the fragment's kernel launched once per morsel (launches
+   reset to 0 before the phase, read after it: the records'
+   ``morsel_launches``), no nvcc build; per run ``morsel_rows``, morsels, the modelled working set,
+   host ms (median of 5) and the peak device bytes above the resident
+   columns beside the monolithic run's (``compiled``'s q1 and q6 below
+   it at 256 MiB, a gate); ``morsel.loop`` armed ``first:1`` on q6's
+   template degrading its native compile to ``compiled`` with the loop
+   kept, equal to the volcano oracle.  Its lines are tagged
+   ``[morsel]``;
+11. runtime services, after phase 12: (a) the restart -- two fresh
    processes, each from a fresh copy of ``src/repro_torch`` (what ``git
    archive`` holds of the package) with an empty ``build/kernels/``,
    against one new store under ``build/runtime/``, each running the four
@@ -2298,6 +2314,213 @@ def serving_phase(torch, ctx, Q, FA, SR, JP, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: out-of-core morsel execution on the SF context
+# ---------------------------------------------------------------------------
+
+#: The kernel each phase-12 query's fragment launches, once per morsel.
+MORSEL_KERNELS = {"q1": "segmented_multi_sum", "q3": "join_probe_agg",
+                  "q6": "filter_agg_general", "join_micro": "join_probe_agg"}
+#: Phase 12's budgets (bytes): the first holds every query whole.
+MORSEL_BUDGETS = (8 << 30, 1 << 30, 256 << 20, 64 << 20)
+#: The budget at which the peak of ``compiled`` must fall below the
+#: monolithic peak, and the queries held to it.
+MORSEL_GATE_BUDGET = 256 << 20
+MORSEL_GATED = ("q1", "q6")
+
+
+def morsel_queries(Q) -> dict:
+    return {"q1": Q.q1, "q3": Q.q3, "q6": Q.q6, "join_micro": Q.join_micro}
+
+
+def peak_over(torch, fn) -> int:
+    """Peak device bytes ``fn`` allocates above what was allocated
+    before it (``torch.cuda`` allocator statistics)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
+#: A kernel's count slot is f32: exact while one launch counts at most
+#: 2^24 rows (the kernels' integer envelope, ``native/patterns.py``).
+F32_EXACT_ROWS = 1 << 24
+
+
+def int_deviation(got, want) -> int:
+    """Largest absolute difference over the integer columns (counts,
+    keys) of two results."""
+    worst = 0
+    for k, y in want.items():
+        y = np.atleast_1d(np.asarray(y))
+        if y.dtype.kind in "iu":
+            x = np.atleast_1d(np.asarray(got[k])).astype(np.int64)
+            worst = max(worst, int(np.max(np.abs(x - y.astype(np.int64)),
+                                          initial=0)))
+    return worst
+
+
+def max_rel_err(got, want) -> float:
+    worst = 0.0
+    for k, y in want.items():
+        y = np.atleast_1d(np.asarray(y))
+        if y.dtype == object:
+            continue
+        x = np.atleast_1d(np.asarray(got[k])).astype(np.float64)
+        y = y.astype(np.float64)
+        worst = max(worst, float(np.max(
+            np.abs(x - y) / np.maximum(np.abs(y), 1e-30), initial=0.0)))
+    return worst
+
+
+def morsel_fault(torch, ctx, Q, rows: int) -> list:
+    """Phase 12's fault site: ``morsel.loop`` armed ``first:1`` on q6's
+    template fails its native compile; the ladder answers from
+    ``compiled`` with the same loop, as the volcano oracle does."""
+    from repro_torch import resilience as RZ
+    from repro_torch.core import CompileCache
+    from repro_torch.core import morsel as MO
+    b = dict(Q.TEMPLATE_BINDINGS["q6"][0])
+    with RZ.inject("morsel.loop", "first:1") as plan:
+        c = Q.TEMPLATES["q6"](ctx).lower(
+            engine="compiled", native=True, morsel_rows=rows).compile(
+            cache=CompileCache(), persist=False)
+    hops = [(d["frm"], d["to"], d["phase"], d["error_type"])
+            for d in c.stats.degraded]
+    check(hops == [("compiled-native", "compiled", "compile",
+                    "KernelBudgetError")] and c.engine_name == "compiled",
+          f"morsel.loop first:1 gave {c.engine_name} {hops}")
+    check(plan.counts()["morsel.loop"]["fired"] == 1, "the site did not fire")
+    node = MO.find_morsel_node(c._plan)
+    check(node is not None and node.morsel_rows == rows,
+          "the degraded compiled rung lost the morsel loop")
+    got = c(**b)
+    want = Q.TEMPLATES["q6"](ctx).lower(engine="volcano").compile()(**b)
+    assert_close(got, want, "q6 template after the morsel.loop fault")
+    return hops
+
+
+def morsel_phase(torch, ctx, Q, FA, SR, JP, CB) -> dict:
+    """Phase 12: q1, q3, q6 and ``join_micro`` on ``compiled`` and
+    ``compiled-native`` under each of ``MORSEL_BUDGETS``, against their
+    monolithic runs: equal results (integers exactly), the monolithic
+    run's fired patterns, the fragment's kernel launched once per morsel,
+    the peak bytes above the resident columns (q1's and q6's below the
+    monolithic peak at 256 MiB), the ``morsel.loop`` fault site.  Returns
+    the kernels' launches in the phase."""
+    from repro_torch.core import lower as L
+    from repro_torch.core import morsel as MO
+    from repro_torch.core import parallel as PAR
+
+    t_phase = time.perf_counter()
+    mods = {"filter_agg_general": FA, "join_probe_agg": JP,
+            "segmented_multi_sum": SR}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    builds = CB.builds
+    log(f"[morsel] resident before phase 12: {torch.cuda.memory_allocated()} "
+        f"bytes; budgets {list(MORSEL_BUDGETS)}")
+    for mod in mods.values():
+        mod.launches = 0
+    for name, build in morsel_queries(Q).items():
+        whole_plan = build(ctx).lower(engine="compiled").plan()
+        spine = PAR._spine_path(whole_plan)[1]
+        spine_rows = ctx.catalog.table(spine.table).num_rows
+        n_cols = len(L.required_scan_columns(whole_plan,
+                                             ctx.catalog)[id(spine)])
+        kernel = MORSEL_KERNELS[name]
+        mono = {}
+        for engine in ("compiled", "compiled-native"):
+            low = build(ctx).lower(engine=engine)
+            c = low.compile()
+            res = c()
+            rep = low.dispatch_report()
+            mono[engine] = dict(
+                result=res,
+                fired=rep.fired_patterns() if rep is not None else [],
+                peak=peak_over(torch, c.result),
+                ms=host_ms(torch, c.result))
+        want = mono["compiled"]["result"]
+        assert_close(mono["compiled-native"]["result"], want,
+                     f"{name} monolithic native")
+        for budget in MORSEL_BUDGETS:
+            for engine in ("compiled", "compiled-native"):
+                low = build(ctx).lower(engine=engine, memory_budget=budget)
+                node = MO.find_morsel_node(low.plan())
+                rows = node.morsel_rows if node is not None else spine_rows
+                k = -(-spine_rows // rows)
+                whole_fits = (MO.working_set_bytes(n_cols, spine_rows)
+                              <= budget)
+                check((node is None) == whole_fits,
+                      f"{name} {engine} at {budget} B: MorselMerge "
+                      f"{node is not None}, whole working set fits "
+                      f"{whole_fits}")
+                c = low.compile()
+                before = {m: mod.launches for m, mod in mods.items()}
+                got = c()
+                torch.cuda.synchronize()
+                launched = {m: mod.launches - before[m]
+                            for m, mod in mods.items()}
+                what = f"{name} {engine} budget {budget}"
+                assert_close(got, want, what)
+                # integers (counts, keys) exactly, but where a kernel's
+                # f32 count slot took more than 2^24 rows in one launch
+                # (monolithic native runs included): there rtol 5e-3
+                dev = int_deviation(got, want)
+                check(dev == 0 or (engine == "compiled-native"
+                                   and rows > F32_EXACT_ROWS),
+                      f"{what}: integers differ by up to {dev}")
+                rec = {"query": name, "engine": engine, "budget": budget,
+                       "morsel_rows": node.morsel_rows if node else None,
+                       "morsels": k,
+                       "working_set_bytes": MO.working_set_bytes(n_cols,
+                                                                 rows),
+                       "bound_columns": n_cols,
+                       "max_rel_err": max_rel_err(got, want),
+                       "int_deviation": dev}
+                if engine == "compiled-native":
+                    fired = low.dispatch_report().fired_patterns()
+                    check(fired == mono[engine]["fired"],
+                          f"{what}: fired {fired}, monolithic "
+                          f"{mono[engine]['fired']}")
+                    check(launched == {m: (k if m == kernel else 0)
+                                       for m in mods},
+                          f"{what}: launches {launched} for {k} morsels")
+                    rec["fired"] = fired
+                else:
+                    check(not any(launched.values()),
+                          f"{what}: compiled launched {launched}")
+                rec["launches"] = launched[kernel]
+                rec["peak_over_resident_bytes"] = peak_over(torch, c.result)
+                rec["monolithic_peak_over_resident_bytes"] = \
+                    mono[engine]["peak"]
+                rec["host_ms"] = host_ms(torch, c.result)
+                rec["monolithic_host_ms"] = mono[engine]["ms"]
+                if (budget == MORSEL_GATE_BUDGET and engine == "compiled"
+                        and name in MORSEL_GATED and node is not None):
+                    check(rec["peak_over_resident_bytes"]
+                          < mono[engine]["peak"],
+                          f"{what}: peak {rec['peak_over_resident_bytes']} "
+                          f"not below the monolithic {mono[engine]['peak']}")
+                log(f"[morsel] {json.dumps(rec)}")
+    launches = {m: mod.launches for m, mod in mods.items()}
+    log(f"[morsel] launches in phase 12: {json.dumps(launches)}")
+    for m, v in launches.items():
+        check(v > 0, f"{m} was never launched on the morsel path")
+    check(CB.builds == builds, f"phase 12 built {CB.builds - builds} kernel "
+          "units that phase 2 did not")
+    q6_rows = MO.choose_morsel_rows(4, ctx.catalog.table(
+        "lineitem").num_rows, MORSEL_GATE_BUDGET)
+    hops = morsel_fault(torch, ctx, Q, q6_rows)
+    log(f"[morsel] fault site: morsel.loop first:1 -> {hops}, the compiled "
+        f"rung kept morsel_rows {q6_rows}, result equal to volcano")
+    torch.cuda.empty_cache()
+    log(f"[morsel] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 11: runtime services (the store, the ladder, trace export, explain)
 # ---------------------------------------------------------------------------
 
@@ -2725,6 +2948,12 @@ def tpch_phases(torch, sf: float, seed: int, fixed, t_all: float) -> list:
         sources.update(build(ctx).lower(native=True).kernel_sources())
     for name, build in Q.TEMPLATES.items():
         sources.update(build(ctx).lower(native=True).kernel_sources())
+    # phase 12's partial aggregates (avg as a sum, a synthetic count) and
+    # join_micro generate units of their own
+    for name, build in morsel_queries(Q).items():
+        sources.update(build(ctx).lower(native=True).kernel_sources())
+        sources.update(build(ctx).lower(
+            native=True, memory_budget=MORSEL_BUDGETS[-1]).kernel_sources())
     CB.build_all(list(sources) + fixed)
     # q22's phase 1 (the scalar subquery) is a fragment of its own
     Q.q22_params(ctx, engine="compiled-native")
@@ -2750,11 +2979,14 @@ def tpch_phases(torch, sf: float, seed: int, fixed, t_all: float) -> list:
                              seed)
     hetero_phase(torch, ctx, seed)
     serving = serving_phase(torch, ctx, Q, FA, SR, JP, seed)
+    morsel = morsel_phase(torch, ctx, Q, FA, SR, JP, CB)
     runtime_phase(torch, ctx, Q, CB, sf, seed)
     for r in records:
         base = r["name"].split("[")[0]
         if base in serving:
             r["serving_launches"] = serving[base]
+        if base in morsel:
+            r["morsel_launches"] = morsel[base]
     del ctx
     torch.cuda.empty_cache()
     return records

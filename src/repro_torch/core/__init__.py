@@ -14,14 +14,15 @@ from repro_torch.core.expr import (Col, Expr, Param, WithDomain, cast, col,
 from repro_torch.core.ml import TrainKernel, register_kernel, train_kernel
 from repro_torch.core.plan import AggSpec, IterativeKernel, MapBatches
 from repro_torch.core.stages import (CompileCache, Compiled, Lowered,
-                                     register_engine)
+                                     available_engines, register_engine)
 from repro_torch.core.staging import udf
 
 __all__ = [
     "DataFrame", "FlareContext", "FlareDataFrame", "flare",
     "col", "lit", "param", "when", "cast", "udf", "AggSpec", "WithDomain",
     "sum_", "avg", "min_", "max_", "count", "any_", "Col", "Expr", "Param",
-    "Lowered", "Compiled", "CompileCache", "CompileStats", "register_engine",
+    "Lowered", "Compiled", "CompileCache", "CompileStats",
+    "available_engines", "register_engine",
     "MapBatches", "IterativeKernel", "MatrixView",
     "TrainKernel", "register_kernel", "train_kernel",
 ]

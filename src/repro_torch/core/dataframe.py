@@ -103,11 +103,15 @@ class FlareContext:
         return out
 
     def lower(self, plan: P.Plan, engine: str = "compiled",
-              native: bool = False, join_index: bool = True) -> S.Lowered:
+              native: bool = False, join_index: bool = True,
+              memory_budget: Optional[int] = None,
+              morsel_rows: Optional[int] = None) -> S.Lowered:
         """Optimize + lower a plan (stages entry point)."""
         return S.lower_plan(self.optimized(plan), self.catalog, self.cache,
                             self.compile_cache, engine=engine,
-                            native=native, join_index=join_index)
+                            native=native, join_index=join_index,
+                            memory_budget=memory_budget,
+                            morsel_rows=morsel_rows)
 
     def preload(self, *names: str, indexes: bool = True) -> None:
         """Paper's ``persist()``: move table columns to the device up
@@ -255,13 +259,24 @@ class DataFrame:
     # -- compilation stages ------------------------------------------------------
 
     def lower(self, engine: str = "compiled", native: bool = False,
-              join_index: bool = True) -> S.Lowered:
+              join_index: bool = True, memory_budget: Optional[int] = None,
+              morsel_rows: Optional[int] = None) -> S.Lowered:
         """Optimize + lower this query.  ``native=True`` runs the kernel
         dispatch pass (``lowered.dispatch_report()`` says what fired);
         ``join_index=False`` makes every join sort its build side in the
-        program instead of probing the cached index."""
+        program instead of probing the cached index.
+
+        ``memory_budget`` (bytes) declares how much device memory the
+        spine stream's working set may take: an over-budget query is
+        rewritten for out-of-core morsel execution -- the scan streams
+        through the plan in fixed-size row ranges and the partial
+        aggregates merge (:mod:`repro_torch.core.morsel`).
+        ``morsel_rows`` pins the range size.  Both compose with
+        ``native``."""
         return self.ctx.lower(self.plan, engine, native=native,
-                              join_index=join_index)
+                              join_index=join_index,
+                              memory_budget=memory_budget,
+                              morsel_rows=morsel_rows)
 
     def params(self) -> Tuple[E.Param, ...]:
         """Param placeholders of this query (binding order)."""

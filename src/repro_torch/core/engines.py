@@ -859,3 +859,44 @@ class VolcanoEngine:
         return {"<": np.less, "<=": np.less_equal, ">": np.greater,
                 ">=": np.greater_equal, "==": np.equal,
                 "!=": np.not_equal}[op](codes, code)
+
+
+# ---------------------------------------------------------------------------
+# front door
+# ---------------------------------------------------------------------------
+
+
+def execute(p: P.Plan, catalog: P.Catalog, engine: str = "compiled",
+            cache: Optional[DeviceCache] = None,
+            stats: Optional[CompileStats] = None,
+            params: Optional[Dict[str, Any]] = None,
+            compile_cache: Optional[Any] = None) -> L.Result:
+    """One-shot execute: lower + compile + run ``p`` (already optimized,
+    or not: no optimizer runs here) through the stages API.
+
+    ``cache`` is the :class:`DeviceCache` to bind columns from; without
+    one the run goes to the card, as ``FlareContext()`` does -- pass
+    ``DeviceCache(torch.device("cpu"))`` for the plain PyTorch path.
+    ``compile_cache`` defaults to a fresh one.  Prepared queries that run
+    more than once should hold on to the
+    :class:`repro_torch.core.stages.Compiled` object instead.
+    """
+    from repro_torch.core import stages  # late import: stages builds on us
+
+    if cache is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "execute(): no CUDA device is available; pass cache="
+                "DeviceCache(torch.device('cpu')) to run the plain PyTorch "
+                "path")
+        cache = DeviceCache(torch.device("cuda"))
+    lowered = stages.lower_plan(
+        p, catalog, cache,
+        compile_cache if compile_cache is not None else stages.CompileCache(),
+        engine=engine)
+    compiled = lowered.compile()
+    out = compiled.result(**(params or {}))
+    if stats is not None:
+        for f in dataclasses.fields(stats):
+            setattr(stats, f.name, getattr(compiled.stats, f.name))
+    return out

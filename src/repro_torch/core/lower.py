@@ -530,7 +530,8 @@ def _lower_join(p: P.Join, left: Stream, right: Stream,
                                                  out_int32=True)
         else:
             idx = torch.searchsorted(kb_sorted, kp, out_int32=True)
-        idx_c = idx.clamp_(0, nb - 1)
+        # out of place: vmap has no batching rule for the in-place clamp_
+        idx_c = idx.clamp(0, nb - 1)
         pos = perm[idx_c]  # build-table row of each (tentative) match
         matched = (kb_sorted[idx_c] == kp) & pmask
         if validate_mask is not None:

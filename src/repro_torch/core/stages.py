@@ -39,7 +39,8 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Protocol,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -172,6 +173,8 @@ class _WholeQueryArtifact:
     kernel_sources: Tuple[str, ...]
     # patterns of the plan's native fragments (plan-walk order)
     patterns: Tuple[str, ...] = ()
+    # morsel sizes of the plan's MorselMerge nodes (plan-walk order)
+    morsels: Tuple[int, ...] = ()
 
 
 def _marshal_args(layout, index_layout, catalog: P.Catalog,
@@ -209,6 +212,33 @@ def kernel_sources(p: P.Plan) -> Tuple[str, ...]:
     return tuple(src for op in _native_ops(p) for src in op.kernel_sources())
 
 
+def morsel_sizes(p: P.Plan) -> Tuple[int, ...]:
+    """``morsel_rows`` of every :class:`repro_torch.core.morsel.
+    MorselMerge` in ``p`` (plan-walk order)."""
+    out: List[int] = []
+
+    def rec(n: P.Plan):
+        rows = getattr(n, "morsel_rows", None)
+        if rows is not None:
+            out.append(rows)
+        for c in n.children():
+            rec(c)
+
+    rec(p)
+    return tuple(out)
+
+
+def fire_morsel_sites(morsels: Sequence[int]) -> None:
+    """The fault site ``morsel.loop``, once per morsel loop of a template,
+    where its program is built.  The JAX package fires it while tracing
+    the loop, inside the compile; the port runs the loop on every call,
+    so the site sits where the template compiles, ahead of the
+    fragments' ``native.kernel`` and of ``compile.xla`` -- the JAX
+    package's trace order."""
+    for rows in morsels:
+        FZ.fault_point("morsel.loop", morsel_rows=rows)
+
+
 class WholeQueryEngine:
     """Whole-query compilation: plan -> one function over device tensors.
 
@@ -231,10 +261,16 @@ class WholeQueryEngine:
         return _WholeQueryArtifact(
             fn, layout, tuple(index_layout), param_specs, out_info, schema,
             tuple(src for op in ops for src in op.kernel_sources()),
-            tuple(op.pattern for op in ops))
+            tuple(op.pattern for op in ops), morsel_sizes(p))
+
+    def prepare_fragments(self, artifact: _WholeQueryArtifact) -> None:
+        """Hook between the morsel and program fault sites: the native
+        engine checks its fragments' kernels here."""
 
     def compile(self, artifact: _WholeQueryArtifact,
                 device: torch.device) -> Executor:
+        fire_morsel_sites(artifact.morsels)
+        self.prepare_fragments(artifact)
         FZ.fault_point("compile.xla")
         if device.type == "cuda" and artifact.kernel_sources:
             from repro_torch.kernels import cuda_build
@@ -541,21 +577,50 @@ class TupleStageEngine:
         return run
 
 
-ENGINES: Dict[str, Any] = {}
+class Engine(Protocol):
+    """A pluggable execution back-end behind the stages API.
+
+    ``lower`` turns an optimized plan into an engine-specific artifact
+    (the whole-query function, a stage decomposition, ...); ``compile``
+    turns that artifact into a reusable catalog-free :data:`Executor` on
+    a device; ``compiler_ir``, where an engine has one, exposes the
+    artifact for inspection.
+    """
+
+    name: str
+
+    def lower(self, p: P.Plan, catalog: P.Catalog,
+              param_specs: Tuple[E.Param, ...]) -> Any:
+        """Lower ``p``; returns the engine's lowering artifact."""
+        ...
+
+    def compile(self, artifact: Any, device: torch.device) -> Executor:
+        """Compile the artifact into an executor."""
+        ...
 
 
-def register_engine(engine) -> Any:
+ENGINES: Dict[str, Engine] = {}
+
+
+def register_engine(engine: Engine) -> Engine:
     """Register a back-end under ``engine.name`` (last wins)."""
     ENGINES[engine.name] = engine
     return engine
 
 
-def get_engine(name: str):
+def get_engine(name: str) -> Engine:
     try:
         return ENGINES[name]
     except KeyError:
         raise ValueError(f"unknown engine {name!r}; available: "
-                         f"{sorted(ENGINES)}") from None
+                         f"{available_engines()}") from None
+
+
+def available_engines() -> List[str]:
+    """Names of the registered engines, sorted; ``compiled-native`` is
+    registered by :mod:`repro_torch.native`, imported here for it."""
+    import repro_torch.native  # noqa: F401
+    return sorted(ENGINES)
 
 
 for _cls in (WholeQueryEngine, StagePipelineEngine, VolcanoStageEngine,
@@ -892,8 +957,10 @@ def compile_batch_executor(p: P.Plan, catalog: P.Catalog,
                            ) -> BatchExecutor:
     """Build the ``bucket``-wide batched program of a template
     (:func:`batch_artifact`, unless already lowered as ``artifact``).
-    The fault site ``compile.xla`` fires here, where the program is built
+    The fault sites ``morsel.loop`` (per morsel loop) and ``compile.xla``
+    fire here, where the program is built
     (:mod:`repro_torch.resilience.faults`)."""
+    fire_morsel_sites(morsel_sizes(p))
     FZ.fault_point("compile.xla", bucket=bucket)
     if artifact is None:
         artifact = batch_artifact(p, catalog, param_specs, bucket)
@@ -959,11 +1026,12 @@ class Compiled:
             raise TypeError(f"unknown parameter(s) {extra}; this template "
                             f"takes {sorted(known)}")
 
-    def _degrade_for(self, err: BaseException) -> Optional["Compiled"]:
-        """Build (and pin) the execution-time fallback Compiled for a
-        recoverable failure; None when the ladder must not engage."""
+    def _degrade_for(self, err: BaseException,
+                     phase: str = "execute") -> Optional["Compiled"]:
+        """Build (and pin) the fallback Compiled for a recoverable
+        failure at ``phase``; None when the ladder must not engage."""
         low, event = DG.next_lowered(self._degrade_src, self.engine_name,
-                                     err, "execute")
+                                     err, phase)
         if low is None:
             return None
         fb = low.compile()
@@ -1130,7 +1198,15 @@ class Compiled:
         mark = OT.TRACER.watermark() if tracing else 0
         with OT.span("execute", engine=self.engine_name, mode="batch",
                      bindings=len(bindings), bucket=bucket) as sp:
-            exe = self._batch_executor(bucket)
+            try:
+                exe = self._batch_executor(bucket)
+            except Exception as err:
+                # building the batched program is a compile: its
+                # failures meet the ladder's compile-phase allowlist
+                fb = self._degrade_for(err, "compile")
+                if fb is None:
+                    raise
+                return self._batch_on(fb, bindings, block)
             padded = bindings + [bindings[-1]] * (bucket - len(bindings))
             stacked = {s.name: [ENG.require_param(b, s) for b in padded]
                        for s in self._param_specs}
@@ -1247,7 +1323,9 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
                device_cache: ENG.DeviceCache,
                compile_cache: CompileCache,
                engine: str = "compiled", native: bool = False,
-               join_index: bool = True) -> Lowered:
+               join_index: bool = True,
+               memory_budget: Optional[int] = None,
+               morsel_rows: Optional[int] = None) -> Lowered:
     """Lower an (already optimized) plan for ``engine``.
 
     ``native=True`` (or ``engine="compiled-native"``) first runs the
@@ -1260,6 +1338,16 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
     join sorts its build keys in the program (and ``join-probe``, which
     needs the index, cannot fire).
 
+    ``memory_budget`` (bytes) declares how much device memory the spine
+    stream's working set may take: a plan that needs more is rewritten
+    for out-of-core morsel execution (:func:`repro_torch.core.morsel.
+    plan_morsels`: the spine streams in fixed-size row ranges and the
+    partial aggregates merge).  ``morsel_rows`` forces a morsel size
+    instead.  Both apply to ``compiled`` and ``compiled-native`` only
+    (``ValueError`` elsewhere); the morsel wrap runs before the native
+    dispatch pass, which then annotates the partial aggregate the loop
+    computes, and the morsel size is part of the template key.
+
     The returned ``Lowered`` carries the pre-rewrite plan and these
     arguments as its degradation-ladder source
     (:mod:`repro_torch.resilience.degrade` re-lowers from there on a
@@ -1269,12 +1357,25 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
     degrade_src = dict(plan=p, catalog=catalog, engine=engine,
                        device_cache=device_cache,
                        compile_cache=compile_cache, native=native,
-                       join_index=join_index)
+                       join_index=join_index, memory_budget=memory_budget,
+                       morsel_rows=morsel_rows)
     if native and engine == "compiled":
         engine = "compiled-native"
     elif native and engine != "compiled-native":
         raise ValueError(f"native=True requires the 'compiled' engine, got "
                          f"{engine!r}")
+    if memory_budget is not None or morsel_rows is not None:
+        if engine not in ("compiled", "compiled-native"):
+            raise ValueError(
+                "memory_budget/morsel_rows apply to the compiled and "
+                f"compiled-native engines, got {engine!r}")
+        # the morsel wrap BEFORE native annotation: the dispatch pass must
+        # see (and annotate) the partial aggregate the loop computes
+        from repro_torch.core import morsel as MO
+        with OT.span("morsel_plan", budget=memory_budget or 0,
+                     morsel_rows=morsel_rows or 0):
+            p = MO.plan_morsels(p, catalog, memory_budget=memory_budget,
+                                morsel_rows=morsel_rows)
     if engine == "compiled-native":
         from repro_torch.native import dispatch as ND
         p, dispatch_report = ND.rewrite_plan(p, catalog, device_cache.device,

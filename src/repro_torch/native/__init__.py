@@ -10,15 +10,16 @@ rewrite pass plus the ``compiled-native`` engine name (``dispatch``)::
     compiled(**params)               # prepared bindings, no rebuilds
 """
 from repro_torch.native.dispatch import (NativeOp, NativeWholeQueryEngine,
-                                         rewrite_plan)
+                                         has_native_ops, rewrite_plan)
 from repro_torch.native.patterns import ExprCompiler, UnsupportedExpr
 from repro_torch.native.registry import (Decision, DispatchReport, Fragment,
-                                         KernelPattern, patterns,
+                                         KernelPattern, available_patterns,
+                                         get_pattern, patterns,
                                          register_pattern)
 
 __all__ = [
-    "NativeOp", "NativeWholeQueryEngine", "rewrite_plan",
+    "NativeOp", "NativeWholeQueryEngine", "has_native_ops", "rewrite_plan",
     "ExprCompiler", "UnsupportedExpr",
     "Decision", "DispatchReport", "Fragment", "KernelPattern",
-    "patterns", "register_pattern",
+    "available_patterns", "get_pattern", "patterns", "register_pattern",
 ]

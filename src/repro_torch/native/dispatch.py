@@ -90,6 +90,13 @@ class NativeOp(P.Plan):
             return self.emitter(bstream, params)
 
 
+def has_native_ops(p: P.Plan) -> bool:
+    """True when any fragment of ``p`` is annotated with a kernel."""
+    if isinstance(p, NativeOp):
+        return True
+    return any(has_native_ops(c) for c in p.children())
+
+
 def rewrite_plan(p: P.Plan, catalog: P.Catalog, device: torch.device,
                  join_index: bool = True
                  ) -> Tuple[P.Plan, R.DispatchReport]:
@@ -150,13 +157,14 @@ class NativeWholeQueryEngine(S.WholeQueryEngine):
 
     name = "compiled-native"
 
-    def compile(self, artifact, device: torch.device):
+    def prepare_fragments(self, artifact) -> None:
         # trust boundary: a fragment's kernel can be refused here, where
         # the template prepares its kernels (the JAX package checks the
-        # same site while tracing each fragment, inside its compile)
+        # same site while tracing each fragment, inside its compile),
+        # after the morsel loops around the fragments and before the
+        # program is built
         for pattern in artifact.patterns:
             FZ.fault_point("native.kernel", pattern=pattern)
-        return super().compile(artifact, device)
 
 
 S.register_engine(NativeWholeQueryEngine())

@@ -77,8 +77,16 @@ def register_pattern(pattern: KernelPattern) -> KernelPattern:
     return pattern
 
 
+def get_pattern(name: str) -> KernelPattern:
+    return _REGISTRY[name]
+
+
 def patterns() -> List[KernelPattern]:
     return list(_REGISTRY.values())
+
+
+def available_patterns() -> List[str]:
+    return list(_REGISTRY)
 
 
 # ---------------------------------------------------------------------------

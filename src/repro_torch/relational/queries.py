@@ -234,6 +234,22 @@ def q22_params(ctx: FlareContext, engine: str = "compiled"
     return {"acctbal_min": float(compiled.scalar("a"))}
 
 
+# -- Fig. 6 micro-benchmark: lineitem |><| orders ------------------------------
+
+
+def join_micro(ctx: FlareContext, strategy: str = None) -> DataFrame:
+    """The paper's join micro-benchmark: lineitem probes orders.
+    ``strategy`` picks the join ("sorted", the default, or "sortmerge",
+    which also sorts the probe side)."""
+    return (ctx.table("lineitem")
+            .join(ctx.table("orders"), on="l_orderkey",
+                  right_on="o_orderkey", strategy=strategy)
+            .agg(sum_(col("l_extendedprice") * (lit(1.0)
+                                                - col("l_discount")),
+                      "revenue"),
+                 count("n")))
+
+
 # ---------------------------------------------------------------------------
 # prepared-query templates (TPC-H substitution parameters as runtime params)
 #

@@ -43,7 +43,9 @@ error, any ``torch.cuda`` error (after an illegal address the CUDA
 context is unusable anyway), :class:`repro_torch.kernels.
 UnsupportedDeviceError` (no kernel for the device), and every
 wrong-answer class -- binding ``TypeError``s, ``ValueError``s, assertion
-and arithmetic errors.  The JAX package's ``XlaRuntimeError`` entry, its
+and arithmetic errors.  :class:`repro_torch.core.morsel.MemoryBudgetError`
+stays off too: a memory budget is the caller's request, which a rung
+without it would ignore.  The JAX package's ``XlaRuntimeError`` entry, its
 real compile or runtime failure, has no counterpart on the list.
 
 Policy knob: ``FLARE_DEGRADE=off`` disables the ladder (faults raise
@@ -140,11 +142,17 @@ def _record(frm: str, to: str, phase: str,
 
 def _rung_kwargs(src: Dict[str, Any], rung: str) -> Dict[str, Any]:
     """Re-lower kwargs for a weaker rung: native annotation is shed (that
-    is what degrading means); the context's device and compile caches
-    and the join-index preference carry over."""
+    is what degrading means); the morsel budget survives onto the
+    ``compiled`` rung only (the stage and interpreted rungs take no
+    budget); the context's device and compile caches and the join-index
+    preference carry over."""
+    out_of_core = rung == "compiled"
     return dict(engine=rung, device_cache=src["device_cache"],
                 compile_cache=src["compile_cache"], native=False,
-                join_index=src.get("join_index", True))
+                join_index=src.get("join_index", True),
+                memory_budget=(src.get("memory_budget") if out_of_core
+                               else None),
+                morsel_rows=src.get("morsel_rows") if out_of_core else None)
 
 
 def next_lowered(src: Optional[Dict[str, Any]], frm: str,

@@ -45,10 +45,14 @@ The sites carry the JAX package's names and error types:
   checks it while tracing the fragment, inside its compile; the port's
   fragments lower on every call, so the site sits at compile time;
 * ``index.build`` -- a join-index build (``core.engines.IndexCache``);
-* ``serve.dispatch`` -- one coalesced dispatch of the query server.
-
-The JAX package's ``morsel.loop`` site arrives with ``core/morsel.py``;
-arming it here raises ``ValueError`` as an unknown site.
+* ``serve.dispatch`` -- one coalesced dispatch of the query server;
+* ``morsel.loop`` -- once per morsel loop of a template
+  (``core.morsel.MorselMerge``), where the template compiles: ahead of
+  ``native.kernel`` in ``stages.WholeQueryEngine.compile`` and ahead of
+  ``compile.xla`` in ``stages.compile_batch_executor``.  The JAX package
+  fires it while tracing the loop, inside its compile; the port runs the
+  loop on every call, so a site in the loop would fire at execute time,
+  where the ladder does not take ``KernelBudgetError``.
 """
 from __future__ import annotations
 
@@ -108,6 +112,7 @@ SITES: Dict[str, Callable[[str], Exception]] = {
     "native.kernel": _kernel_budget,
     "index.build": lambda s: IndexBuildError(f"injected fault at {s}"),
     "serve.dispatch": lambda s: DispatchFault(f"injected fault at {s}"),
+    "morsel.loop": _kernel_budget,
 }
 
 

@@ -914,3 +914,33 @@ def test_unit_build_failure_is_not_absorbed_by_the_ladder(card_ctx):
     with pytest.raises(CB.UnitBuildError):
         lowered.compile(cache=CompileCache(), persist=False)
     assert DG.events() == ()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qname,rows", [("q6", 65_536), ("q1", 65_536),
+                                        ("q6", 50_001), ("q1", 50_001)])
+def test_morsel_runs_launch_once_per_morsel_on_card(card_ctx, qname, rows):
+    """Out-of-core execution on the card: the fragment's kernel runs once
+    per morsel on views of the device columns (aligned morsels, and
+    morsels whose views start off any 16-byte boundary), and the result
+    equals the plain versions (the generic lowering, monolithic and in
+    morsels) and the monolithic kernel run."""
+    from repro_torch.core import morsel as MO
+    mod = {"q6": FA, "q1": SR}[qname]
+    build = Q.QUERIES[qname]
+    n = card_ctx.catalog.table("lineitem").num_rows
+    plain = build(card_ctx).lower().compile()()
+    plain_morsels = build(card_ctx).lower(morsel_rows=rows).compile()()
+    whole = build(card_ctx).lower(native=True).compile()()
+    low = build(card_ctx).lower(native=True, morsel_rows=rows)
+    assert MO.find_morsel_node(low.plan()).morsel_rows == rows
+    compiled = low.compile()
+    before = (FA.launches, SR.launches, JP.launches)
+    got = compiled()
+    torch.cuda.synchronize()
+    after = (FA.launches, SR.launches, JP.launches)
+    launched = dict(zip((FA, SR, JP), (a - b for a, b in zip(after, before))))
+    assert launched[mod] == -(-n // rows) > 1
+    assert sum(launched.values()) == launched[mod]
+    for want in (plain, plain_morsels, whole):
+        assert_results_equal(want, got, rtol=1e-3, msg=qname)

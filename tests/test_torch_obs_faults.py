@@ -242,16 +242,15 @@ def test_fault_plan_fires_as_reference(site, spec, seed):
 def test_sites_are_reference_sites_and_raise_their_types():
     from repro_torch.kernels import KernelBudgetError
     from repro_torch.persist.store import StoreCorrupt
-    assert set(FZ.SITES) <= set(JFZ.SITES)
-    # every site of the JAX package but morsel.loop (core/morsel.py is
-    # not ported)
-    assert set(JFZ.SITES) - set(FZ.SITES) == {"morsel.loop"}
+    # every site of the JAX package, morsel.loop included
+    assert set(FZ.SITES) == set(JFZ.SITES)
     expect = {"persist.load": StoreCorrupt,
               "persist.save": OSError,
               "compile.xla": FZ.CompileFault,
               "native.kernel": KernelBudgetError,
               "index.build": FZ.IndexBuildError,
-              "serve.dispatch": FZ.DispatchFault}
+              "serve.dispatch": FZ.DispatchFault,
+              "morsel.loop": KernelBudgetError}
     assert set(expect) == set(FZ.SITES)
     for site, etype in expect.items():
         with RZ.inject(site, "first:1"):
@@ -261,8 +260,11 @@ def test_sites_are_reference_sites_and_raise_their_types():
 
 
 def test_bad_plans_rejected():
+    # morsel.loop is a site now: arming it is accepted
+    assert FZ.FaultPlan({"morsel.loop": "first:1"}).counts() == {
+        "morsel.loop": {"checked": 0, "fired": 0}}
     with pytest.raises(ValueError, match="unknown fault site"):
-        FZ.FaultPlan({"morsel.loop": "first:1"})  # no such site here yet
+        FZ.FaultPlan({"morsel.stream": "first:1"})
     with pytest.raises(ValueError, match="unknown fault schedule"):
         FZ.FaultPlan({"compile.xla": "sometimes"})
     with pytest.raises(ValueError, match="0..1"):
