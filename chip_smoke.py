@@ -144,7 +144,27 @@ Phases, in order; any failure exits non-zero:
    template degrading its native compile to ``compiled`` with the loop
    kept, equal to the volcano oracle.  Its lines are tagged
    ``[morsel]``;
-11. runtime services, after phase 12: (a) the restart -- two fresh
+13. the sharded ``parallel`` engine, after phase 12 on the same context:
+   each shard a row range of the spine (``ceil(rows / n)`` rounded up to
+   128 rows) on the one card; first each main-path kernel against its
+   plain version on every shard's own inputs (captured from one native
+   run at 4 shards of q6, q1, q19 and q3; every view 16-byte aligned);
+   then q1, q3, q6, q14 and q19, the q6 and q14 templates (two bindings
+   each) and a gather plan (a filter, then sort and limit) on
+   ``parallel`` and ``parallel`` with ``native=True`` at 1, 2, 4 and 8
+   shards, each against the monolithic ``compiled`` run (rtol 5e-3;
+   integers exactly wherever no launch counted more than 2^24 rows),
+   with phase 4's fired patterns, the fragment's kernel launched exactly
+   once per shard (launches reset to 0 just before each run, read just
+   after: the records' ``parallel_launches``), one compile per mesh
+   shape (the second binding a cache hit), no nvcc build; host ms
+   (median of 5) of q1, q3, q6 and q19 beside the monolithic runs'; the
+   peak device bytes above the resident columns of q1 and q3 at 1 and 8
+   shards; native q1 at 4 shards under a 256 MiB budget (shards x
+   morsels launches); ``compile.xla`` armed ``first:1`` on q6's native
+   parallel template: one ``parallel -> compiled`` hop and the right
+   answer.  Its lines are tagged ``[parallel]``;
+11. runtime services, after phase 13: (a) the restart -- two fresh
    processes, each from a fresh copy of ``src/repro_torch`` (what ``git
    archive`` holds of the package) with an empty ``build/kernels/``,
    against one new store under ``build/runtime/``, each running the four
@@ -2521,6 +2541,303 @@ def morsel_phase(torch, ctx, Q, FA, SR, JP, CB) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the sharded parallel engine on the SF context
+# ---------------------------------------------------------------------------
+
+#: Phase 13's shard counts (``benchmarks/bench_scaling.py``'s).
+PARALLEL_SHARDS = (1, 2, 4, 8)
+#: The kernel each phase-13 query's fragment launches, once per shard.
+PARALLEL_KERNELS = {"q1": "segmented_multi_sum", "q3": "join_probe_agg",
+                    "q6": "filter_agg_general", "q14": "join_probe_agg",
+                    "q19": "join_probe_agg"}
+#: The templates of phase 13 (two bindings each) and their kernels.
+PARALLEL_TEMPLATES = {"q6": "filter_agg_general", "q14": "join_probe_agg"}
+#: Queries timed (host ms, median of 5) at every shard count.
+PARALLEL_TIMED = ("q1", "q3", "q6", "q19")
+#: Queries whose peak device bytes are read at 1 and 8 shards.
+PARALLEL_PEAKED = ("q1", "q3")
+#: The out-of-core run of phase 13: native q1 at 4 shards under 256 MiB.
+PARALLEL_BUDGET = 256 << 20
+#: The per-shard kernel checks of phase 13: (query, wrapper module name).
+PARALLEL_CHECKED = (("q6", "filter_agg_general"),
+                    ("q1", "segmented_multi_sum"),
+                    ("q19", "join_probe_agg"), ("q3", "join_probe_agg"))
+
+
+def parallel_queries(Q) -> dict:
+    return {name: Q.QUERIES[name] for name in PARALLEL_KERNELS}
+
+
+def gather_query(ctx):
+    """Phase 13's gather plan: a filter, then sort and limit over the
+    whole spine (the shape of ``tests/test_engine_matrix.py``'s
+    ``sorted_scan``, with a filter and a projection)."""
+    from repro_torch.core import col, lit
+    return (ctx.table("lineitem").filter(col("l_quantity") < lit(2.0))
+            .select("l_orderkey", "l_partkey", "l_extendedprice")
+            .sort(("l_extendedprice", False), "l_orderkey").limit(10))
+
+
+def largest_shard(rows: int, n: int) -> int:
+    from repro_torch.core import parallel as PAR
+    return max(e - s for s, e in PAR.shard_bounds(rows, n))
+
+
+def shard_kernel_checks(torch, ctx, Q, mods, mesh) -> list:
+    """Each phase-13 kernel against its plain version on every shard's
+    own inputs (captured from one native run at 4 shards), the views'
+    pointers 16-byte aligned (the kernels' vector loads)."""
+    out = []
+    for qname, kname in PARALLEL_CHECKED:
+        mod = mods[kname]
+        with Capture(mod, kname) as cap:
+            Q.QUERIES[qname](ctx).lower(engine="parallel", native=True,
+                                        mesh=mesh).compile()()
+        check(len(cap.calls) == mesh.shape["data"],
+              f"{qname}: {len(cap.calls)} {kname} calls for "
+              f"{mesh.shape['data']} shards")
+        errs = []
+        for args, kw in cap.calls:
+            # every wrapper takes (body, columns, mask, ...): the shard's
+            # views of the spine, and its mask where the plan filters
+            ptrs = [t.data_ptr() for t in list(args[1]) + [args[2]]
+                    if t is not None]
+            check(all(p % 16 == 0 for p in ptrs),
+                  f"{qname}: a shard view is not 16-byte aligned")
+            got = getattr(mod, kname)(*args, **kw)
+            want = getattr(mod, kname + "_plain")(*args, **kw)
+            errs.append(compare(torch, got, want, f"{qname} shard {kname}"))
+        out.append({"query": qname, "kernel": kname,
+                    "shards": len(cap.calls),
+                    "rows": [int(a[3] if kname != "segmented_multi_sum"
+                                 else a[4]) for a, _ in cap.calls],
+                    "max_abs_err": max(errs)})
+        log(f"[parallel] kernel {json.dumps(out[-1])}")
+    return out
+
+
+def parallel_run(torch, ctx, mods, build, name: str, engine_native: bool,
+                 n: int, make_mesh, want, params=None) -> dict:
+    """One phase-13 run: lower, compile, run once with the kernels'
+    launches reset to 0 just before and read just after; the result
+    against ``want`` (the monolithic ``compiled`` one).  Returns the
+    record, the compiled template and the lowered one."""
+    from repro_torch.core import parallel as PAR
+    params = params or {}
+    low = build(ctx).lower(engine="parallel", native=engine_native,
+                           mesh=make_mesh(n))
+    node = PAR.find_shard_node(low.plan())
+    check(node is not None and node.n_shards == n,
+          f"{name}: no {n}-shard node in {low.explain()}")
+    c = low.compile()
+    for mod in mods.values():
+        mod.launches = 0
+    got = c(**params)
+    torch.cuda.synchronize()
+    launched = {m: mod.launches for m, mod in mods.items()}
+    what = f"{name} parallel{' native' if engine_native else ''} x{n}"
+    assert_close(got, want, what)
+    rows = node.true_rows
+    dev = int_deviation(got, want)
+    # integers exactly, but where a native launch counted more than
+    # 2^24 rows in its f32 count slot
+    check(dev == 0 or (engine_native
+                       and largest_shard(rows, n) > F32_EXACT_ROWS),
+          f"{what}: integers differ by up to {dev}")
+    rec = {"query": name, "engine": "parallel-native" if engine_native
+           else "parallel", "shards": n,
+           "shard_rows": [e - s for s, e in PAR.shard_bounds(rows, n)],
+           "kind": type(node).__name__, "cache_hit": c.stats.cache_hit,
+           "max_rel_err": max_rel_err(got, want), "int_deviation": dev,
+           "launches": launched}
+    return rec, c, low
+
+
+def parallel_phase(torch, ctx, Q, FA, SR, JP, CB) -> dict:
+    """Phase 13: q1, q3, q6, q14 and q19, the q6 and q14 templates (two
+    bindings) and a gather plan on ``parallel`` and ``parallel`` with
+    ``native=True`` at 1, 2, 4 and 8 shards on the SF context, against
+    the monolithic ``compiled`` run: equal results (integers exactly
+    where no launch counted more than 2^24 rows), phase 4's fired
+    patterns, each fragment's kernel launched once per shard, one
+    compile per mesh shape, no nvcc build; host ms of q1, q3, q6 and
+    q19 against the monolithic runs; q1's and q3's peak bytes at 1 and
+    8 shards; native q1 at 4 shards under a 256 MiB budget (shards x
+    morsels launches); ``compile.xla`` armed ``first:1`` on q6's
+    template (one ``parallel -> compiled`` hop).  Returns the kernels'
+    launches in the phase."""
+    from repro_torch import resilience as RZ
+    from repro_torch.core import CompileCache
+    from repro_torch.core import lower as L
+    from repro_torch.core import morsel as MO
+    from repro_torch.core import parallel as PAR
+    from repro_torch.launch.mesh import make_data_mesh
+
+    t_phase = time.perf_counter()
+    mods = {"filter_agg_general": FA, "join_probe_agg": JP,
+            "segmented_multi_sum": SR}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    builds = CB.builds
+    totals = {m: 0 for m in mods}
+    log(f"[parallel] resident before phase 13: "
+        f"{torch.cuda.memory_allocated()} bytes; shards "
+        f"{list(PARALLEL_SHARDS)} on {make_data_mesh(1).device}")
+    checks = shard_kernel_checks(torch, ctx, Q, mods, make_data_mesh(4))
+
+    def tally(rec, kernel, n):
+        for m, v in rec["launches"].items():
+            totals[m] += v
+        if rec["engine"] == "parallel-native":
+            want = {m: (n if m == kernel else 0) for m in mods}
+        else:
+            want = {m: 0 for m in mods}
+        check(rec["launches"] == want,
+              f"{rec['query']} {rec['engine']} x{n}: launches "
+              f"{rec['launches']}, want {want}")
+
+    table = {}
+    for name, build in parallel_queries(Q).items():
+        kernel = PARALLEL_KERNELS[name]
+        mono = {}
+        for native in (False, True):
+            c = build(ctx).lower(engine="compiled", native=native).compile()
+            res = c()
+            mono[native] = dict(
+                result=res,
+                ms=(host_ms(torch, c.result) if name in PARALLEL_TIMED
+                    else None),
+                peak=(peak_over(torch, c.result) if name in PARALLEL_PEAKED
+                      else None))
+        want = mono[False]["result"]
+        for n in PARALLEL_SHARDS:
+            for native in (False, True):
+                rec, c, low = parallel_run(torch, ctx, mods, build, name,
+                                           native, n, make_data_mesh, want)
+                tally(rec, kernel, n)
+                if native:
+                    fired = low.dispatch_report().fired_patterns()
+                    check(fired == EXPECTED_PATTERNS[name],
+                          f"{name} x{n}: fired {fired}")
+                    check(len(low.dispatch_report().per_shard) == n,
+                          f"{name} x{n}: per-shard report")
+                    rec["fired"] = fired
+                if name in PARALLEL_TIMED:
+                    rec["host_ms"] = host_ms(torch, c.result)
+                    rec["monolithic_host_ms"] = mono[native]["ms"]
+                    rec["ratio_to_monolithic"] = (rec["host_ms"]
+                                                  / mono[native]["ms"])
+                    table[(name, native, n)] = rec["host_ms"]
+                if name in PARALLEL_PEAKED and n in (1, 8):
+                    rec["peak_over_resident_bytes"] = peak_over(torch,
+                                                                c.result)
+                    rec["monolithic_peak_over_resident_bytes"] = \
+                        mono[native]["peak"]
+                log(f"[parallel] {json.dumps(rec)}")
+        del mono, want
+    # templates: two bindings on one compile per mesh shape
+    for tname, kernel in PARALLEL_TEMPLATES.items():
+        build = Q.TEMPLATES[tname]
+        for n in PARALLEL_SHARDS:
+            for native in (False, True):
+                hits = []
+                for b in Q.TEMPLATE_BINDINGS[tname][:2]:
+                    want = build(ctx).lower(engine="compiled").compile()(**b)
+                    rec, c, low = parallel_run(
+                        torch, ctx, mods, build, f"template:{tname}", native,
+                        n, make_data_mesh, want, params=b)
+                    tally(rec, kernel, n)
+                    hits.append(c.stats.cache_hit)
+                    if native:
+                        check(low.dispatch_report().fired_patterns()
+                              == EXPECTED_PATTERNS[f"template:{tname}"],
+                              f"template {tname} x{n}: fired")
+                check(hits == [False, True],
+                      f"template {tname} x{n} native={native}: cache hits "
+                      f"{hits}, want one compile per mesh shape")
+                log(f"[parallel] template {tname} x{n} "
+                    f"{'native ' if native else ''}two bindings, one "
+                    f"compile: {json.dumps(hits)}")
+    # the gather plan: nothing to merge, the shards' rows concatenated
+    want = gather_query(ctx).lower(engine="compiled").compile()()
+    for n in PARALLEL_SHARDS:
+        for native in (False, True):
+            rec, c, low = parallel_run(torch, ctx, mods, gather_query,
+                                       "gather", native, n, make_data_mesh,
+                                       want)
+            check(rec["kind"] == "ShardGather", f"gather x{n}: {rec['kind']}")
+            tally(rec, None, n)
+            if n in (1, 8):
+                rec["host_ms"] = host_ms(torch, c.result)
+            log(f"[parallel] {json.dumps(rec)}")
+    # out of core per shard: native q1 at 4 shards under 256 MiB
+    whole = Q.q1(ctx).lower(engine="compiled").plan()
+    spine = PAR._spine_path(whole)[1]
+    rows = ctx.catalog.table(spine.table).num_rows
+    n_cols = len(L.required_scan_columns(whole, ctx.catalog)[id(spine)])
+    low = Q.q1(ctx).lower(engine="parallel", native=True,
+                          mesh=make_data_mesh(4),
+                          memory_budget=PARALLEL_BUDGET)
+    inner = MO.find_morsel_node(PAR.find_shard_node(low.plan()))
+    check(inner is not None, "q1 x4 under 256 MiB: no morsel loop")
+    m = inner.morsel_rows
+    morsels = [max(1, -(-(e - s) // m)) for s, e in PAR.shard_bounds(rows, 4)]
+    check(m == MO.choose_morsel_rows(n_cols, largest_shard(rows, 4),
+                                     PARALLEL_BUDGET),
+          f"q1 x4 morsel_rows {m}")
+    c = low.compile()
+    for mod in mods.values():
+        mod.launches = 0
+    got = c()
+    torch.cuda.synchronize()
+    launched = {k: mod.launches for k, mod in mods.items()}
+    for k, v in launched.items():
+        totals[k] += v
+    check(launched == {"filter_agg_general": 0, "join_probe_agg": 0,
+                       "segmented_multi_sum": sum(morsels)},
+          f"q1 x4 under 256 MiB: launches {launched}, morsels {morsels}")
+    want = Q.q1(ctx).lower(engine="compiled").compile()()
+    assert_close(got, want, "q1 x4 under 256 MiB")
+    check(int_deviation(got, want) == 0, "q1 x4 under 256 MiB: integers")
+    rec = {"query": "q1", "engine": "parallel-native", "shards": 4,
+           "budget": PARALLEL_BUDGET, "morsel_rows": m,
+           "morsels_per_shard": morsels, "launches": launched,
+           "host_ms": host_ms(torch, c.result),
+           "peak_over_resident_bytes": peak_over(torch, c.result)}
+    log(f"[parallel] {json.dumps(rec)}")
+    # the ladder's parallel -> compiled rung
+    b = dict(Q.TEMPLATE_BINDINGS["q6"][0])
+    with RZ.inject("compile.xla", "first:1") as plan:
+        c = Q.TEMPLATES["q6"](ctx).lower(
+            engine="parallel", native=True, mesh=make_data_mesh(4)).compile(
+            cache=CompileCache(), persist=False)
+    hops = [(d["frm"], d["to"], d["phase"], d["error_type"])
+            for d in c.stats.degraded]
+    check(hops == [("parallel", "compiled", "compile", "CompileFault")]
+          and c.engine_name == "compiled"
+          and plan.counts()["compile.xla"]["fired"] == 1,
+          f"compile.xla first:1 on parallel gave {c.engine_name} {hops}")
+    assert_close(c(**b), Q.TEMPLATES["q6"](ctx).lower(
+        engine="compiled").compile()(**b), "q6 template after the hop")
+    log(f"[parallel] fault site: compile.xla first:1 -> {hops}, result "
+        "equal to compiled")
+    log(f"[parallel] launches in phase 13: {json.dumps(totals)}")
+    check(all(v > 0 for v in totals.values()),
+          f"a kernel was never launched on the sharded path: {totals}")
+    check(CB.builds == builds, f"phase 13 built {CB.builds - builds} kernel "
+          "units that phase 2 did not")
+    lines = {}
+    for (name, native, n), ms in sorted(table.items()):
+        lines.setdefault(f"{name} {'native' if native else 'compiled'}",
+                         {})[n] = ms
+    log(f"[parallel] host ms by shard count: {json.dumps(lines)}")
+    log(f"[parallel] per-shard kernel checks: {json.dumps(checks)}")
+    torch.cuda.empty_cache()
+    log(f"[parallel] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 11: runtime services (the store, the ladder, trace export, explain)
 # ---------------------------------------------------------------------------
 
@@ -2954,6 +3271,11 @@ def tpch_phases(torch, sf: float, seed: int, fixed, t_all: float) -> list:
         sources.update(build(ctx).lower(native=True).kernel_sources())
         sources.update(build(ctx).lower(
             native=True, memory_budget=MORSEL_BUDGETS[-1]).kernel_sources())
+    # phase 13's shard-local partial aggregates (the same at any count)
+    for build in list(parallel_queries(Q).values()) + [
+            Q.TEMPLATES[t] for t in PARALLEL_TEMPLATES]:
+        sources.update(build(ctx).lower(engine="parallel",
+                                        native=True).kernel_sources())
     CB.build_all(list(sources) + fixed)
     # q22's phase 1 (the scalar subquery) is a fragment of its own
     Q.q22_params(ctx, engine="compiled-native")
@@ -2980,6 +3302,7 @@ def tpch_phases(torch, sf: float, seed: int, fixed, t_all: float) -> list:
     hetero_phase(torch, ctx, seed)
     serving = serving_phase(torch, ctx, Q, FA, SR, JP, seed)
     morsel = morsel_phase(torch, ctx, Q, FA, SR, JP, CB)
+    parallel = parallel_phase(torch, ctx, Q, FA, SR, JP, CB)
     runtime_phase(torch, ctx, Q, CB, sf, seed)
     for r in records:
         base = r["name"].split("[")[0]
@@ -2987,6 +3310,8 @@ def tpch_phases(torch, sf: float, seed: int, fixed, t_all: float) -> list:
             r["serving_launches"] = serving[base]
         if base in morsel:
             r["morsel_launches"] = morsel[base]
+        if base in parallel:
+            r["parallel_launches"] = parallel[base]
     del ctx
     torch.cuda.empty_cache()
     return records

@@ -16,6 +16,8 @@ from repro_torch.core.plan import AggSpec, IterativeKernel, MapBatches
 from repro_torch.core.stages import (CompileCache, Compiled, Lowered,
                                      available_engines, register_engine)
 from repro_torch.core.staging import udf
+# registers the sharded "parallel" engine with the stages API
+from repro_torch.core import parallel as _parallel  # noqa: E402,F401
 
 __all__ = [
     "DataFrame", "FlareContext", "FlareDataFrame", "flare",

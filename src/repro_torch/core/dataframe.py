@@ -103,7 +103,8 @@ class FlareContext:
         return out
 
     def lower(self, plan: P.Plan, engine: str = "compiled",
-              native: bool = False, join_index: bool = True,
+              native: bool = False, mesh: Optional[Any] = None,
+              axis: str = "data", join_index: bool = True,
               memory_budget: Optional[int] = None,
               morsel_rows: Optional[int] = None) -> S.Lowered:
         """Optimize + lower a plan (stages entry point)."""
@@ -111,7 +112,7 @@ class FlareContext:
                             self.compile_cache, engine=engine,
                             native=native, join_index=join_index,
                             memory_budget=memory_budget,
-                            morsel_rows=morsel_rows)
+                            morsel_rows=morsel_rows, mesh=mesh, axis=axis)
 
     def preload(self, *names: str, indexes: bool = True) -> None:
         """Paper's ``persist()``: move table columns to the device up
@@ -259,6 +260,7 @@ class DataFrame:
     # -- compilation stages ------------------------------------------------------
 
     def lower(self, engine: str = "compiled", native: bool = False,
+              mesh: Optional[Any] = None, axis: str = "data",
               join_index: bool = True, memory_budget: Optional[int] = None,
               morsel_rows: Optional[int] = None) -> S.Lowered:
         """Optimize + lower this query.  ``native=True`` runs the kernel
@@ -266,15 +268,23 @@ class DataFrame:
         ``join_index=False`` makes every join sort its build side in the
         program instead of probing the cached index.
 
+        ``engine="parallel"`` splits the query into row-range shards of
+        its spine table along ``axis`` of ``mesh`` (default: the
+        context's device, :func:`repro_torch.launch.mesh.make_data_mesh`),
+        runs the row-parallel section once per shard and merges the
+        partial aggregates (or concatenates the shards' rows) after it
+        (:mod:`repro_torch.core.parallel`); one template per mesh shape
+        serves every binding.
+
         ``memory_budget`` (bytes) declares how much device memory the
         spine stream's working set may take: an over-budget query is
         rewritten for out-of-core morsel execution -- the scan streams
         through the plan in fixed-size row ranges and the partial
         aggregates merge (:mod:`repro_torch.core.morsel`).
         ``morsel_rows`` pins the range size.  Both compose with
-        ``native``."""
-        return self.ctx.lower(self.plan, engine, native=native,
-                              join_index=join_index,
+        ``native`` and ``parallel``."""
+        return self.ctx.lower(self.plan, engine, native=native, mesh=mesh,
+                              axis=axis, join_index=join_index,
                               memory_budget=memory_budget,
                               morsel_rows=morsel_rows)
 

@@ -602,10 +602,19 @@ def _lower_aggregate(p: P.Aggregate, child: Stream, catalog: P.Catalog,
             elif a.op == "avg":
                 s = masked(v).sum()
                 cols[a.name] = (s / torch.clamp(cnt, min=1))[None]
-            elif a.op == "min":
-                cols[a.name] = masked(v, type_max(v.dtype)).min()[None]
-            elif a.op == "max":
-                cols[a.name] = masked(v, type_min(v.dtype)).max()[None]
+            elif a.op in ("min", "max"):
+                fill = type_max(v.dtype) if a.op == "min" else type_min(
+                    v.dtype)
+                if child.n == 0:
+                    # torch reduces no element to an error, where the
+                    # neutral element is the answer (an empty row range
+                    # of a sharded or morsel-split spine)
+                    cols[a.name] = torch.full((1,), fill, dtype=v.dtype,
+                                              device=dev)
+                elif a.op == "min":
+                    cols[a.name] = masked(v, fill).min()[None]
+                else:
+                    cols[a.name] = masked(v, fill).max()[None]
         return Stream(cols, None, info, dev)
 
     strides, domain = group_layout(p, child.info)

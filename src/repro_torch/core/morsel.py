@@ -148,12 +148,8 @@ class MorselMerge(P.Plan):
                     start: int, rows: int) -> Dict[str, torch.Tensor]:
         """The partial aggregate over spine rows ``[start, start+rows)``:
         the spine's columns and mask enter as views, never copies."""
-        end = start + rows
-        mscans = dict(scans)
-        mscans[id(self.spine)] = L.Stream(
-            {k: v[start:end] for k, v in sstream.cols.items()},
-            None if sstream.mask is None else sstream.mask[start:end],
-            L.StaticInfo(sstream.info.cols, rows), sstream.device)
+        mscans = PAR.range_scans(scans, self.spine, sstream, start,
+                                 start + rows)
         return dict(L.lower_node(self.child, catalog, mscans, params).cols)
 
     def lower_stream(self, catalog, scans, params) -> L.Stream:
@@ -164,7 +160,6 @@ class MorselMerge(P.Plan):
             raise KeyError(f"morsel spine scan {self.spine.table!r} not "
                            "bound")
         m, n = self.morsel_rows, sstream.n
-        keys = self.original.keys
         acc: Optional[Dict[str, torch.Tensor]] = None
         part: Dict[str, torch.Tensor] = {}
         # no padding copy: the last morsel is just shorter
@@ -181,19 +176,7 @@ class MorselMerge(P.Plan):
             # dtypes and shapes, and the result is the neutral elements
             part = self._run_morsel(catalog, scans, params, sstream, 0, 0)
             acc = {name: _fill(op, part[name]) for name, op in self.merges}
-        cnt = acc[self.count_name] if self.count_name else None
-        # group keys decode the group index: the same in every morsel
-        out = {k: part[k] for k in keys}
-        for name, _ in self.merges:
-            if name == self.synthetic:
-                continue
-            v = acc[name]
-            if name in self.avg_names:
-                v = v / torch.clamp(cnt, min=1).to(v.dtype)
-            out[name] = v
-        mask = (cnt > 0) if keys and cnt is not None else None
-        return L.Stream(out, mask, L.static_info(self.original, catalog),
-                        sstream.device)
+        return PAR.recompose(self, acc, part, catalog, sstream.device)
 
 
 def find_morsel_node(p: P.Plan) -> Optional[MorselMerge]:

@@ -32,8 +32,9 @@ Two runtime services sit under ``compile`` and the executors:
 Besides ``compiled`` (and ``compiled-native``), the registry holds the
 paper's comparison points: ``stage`` (stage-granular execution with host
 round-trips between stages), ``volcano`` (the numpy f64 oracle) and
-``tuple`` (row-at-a-time).  ``native=True`` applies to ``compiled``
-only.
+``tuple`` (row-at-a-time), and the sharded ``parallel`` engine
+(:mod:`repro_torch.core.parallel`).  ``native=True`` applies to
+``compiled`` and ``parallel``.
 """
 from __future__ import annotations
 
@@ -248,6 +249,8 @@ class WholeQueryEngine:
     executor."""
 
     name = "compiled"
+    #: attributes of the ``compile.xla`` fault site's span
+    site_attrs: Dict[str, Any] = {}
 
     def lower(self, p: P.Plan, catalog: P.Catalog,
               param_specs: Tuple[E.Param, ...]) -> _WholeQueryArtifact:
@@ -263,15 +266,17 @@ class WholeQueryEngine:
             tuple(src for op in ops for src in op.kernel_sources()),
             tuple(op.pattern for op in ops), morsel_sizes(p))
 
-    def prepare_fragments(self, artifact: _WholeQueryArtifact) -> None:
-        """Hook between the morsel and program fault sites: the native
-        engine checks its fragments' kernels here."""
-
     def compile(self, artifact: _WholeQueryArtifact,
                 device: torch.device) -> Executor:
         fire_morsel_sites(artifact.morsels)
-        self.prepare_fragments(artifact)
-        FZ.fault_point("compile.xla")
+        # trust boundary: a fragment's kernel can be refused where the
+        # template prepares its kernels (the JAX package checks the same
+        # site while tracing each fragment, inside its compile), after
+        # the morsel loops around the fragments and before the program
+        # is built.  Only an annotated plan has fragments.
+        for pattern in artifact.patterns:
+            FZ.fault_point("native.kernel", pattern=pattern)
+        FZ.fault_point("compile.xla", **self.site_attrs)
         if device.type == "cuda" and artifact.kernel_sources:
             from repro_torch.kernels import cuda_build
             cuda_build.build_all(artifact.kernel_sources)
@@ -1325,7 +1330,8 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
                engine: str = "compiled", native: bool = False,
                join_index: bool = True,
                memory_budget: Optional[int] = None,
-               morsel_rows: Optional[int] = None) -> Lowered:
+               morsel_rows: Optional[int] = None,
+               mesh: Optional[Any] = None, axis: str = "data") -> Lowered:
     """Lower an (already optimized) plan for ``engine``.
 
     ``native=True`` (or ``engine="compiled-native"``) first runs the
@@ -1343,10 +1349,22 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
     for out-of-core morsel execution (:func:`repro_torch.core.morsel.
     plan_morsels`: the spine streams in fixed-size row ranges and the
     partial aggregates merge).  ``morsel_rows`` forces a morsel size
-    instead.  Both apply to ``compiled`` and ``compiled-native`` only
-    (``ValueError`` elsewhere); the morsel wrap runs before the native
-    dispatch pass, which then annotates the partial aggregate the loop
-    computes, and the morsel size is part of the template key.
+    instead.  Both apply to ``compiled``, ``compiled-native`` and
+    ``parallel`` (``ValueError`` elsewhere); the morsel wrap runs before
+    the native dispatch pass, which then annotates the partial aggregate
+    the loop computes, and the morsel size is part of the template key.
+
+    ``engine="parallel"`` runs the shard planner first
+    (:func:`repro_torch.core.parallel.shard_plan`): the plan splits into
+    a section that runs once per row-range shard of the spine and a
+    merge or gather finish, over ``mesh`` (default: :func:`repro_torch.
+    launch.mesh.make_data_mesh` on the context's device) along ``axis``.
+    The mesh's axis, shard count and device are part of the template
+    key: one template per mesh shape.  ``native=True`` composes (each
+    shard launches its fragment's kernel; the per-shard report lands on
+    ``Lowered.dispatch_report()``), and so does a memory budget (each
+    shard streams its own morsels).  ``mesh=`` on any other engine
+    raises ``ValueError``.
 
     The returned ``Lowered`` carries the pre-rewrite plan and these
     arguments as its degradation-ladder source
@@ -1357,31 +1375,54 @@ def lower_plan(p: P.Plan, catalog: P.Catalog,
     degrade_src = dict(plan=p, catalog=catalog, engine=engine,
                        device_cache=device_cache,
                        compile_cache=compile_cache, native=native,
-                       join_index=join_index, memory_budget=memory_budget,
-                       morsel_rows=morsel_rows)
-    if native and engine == "compiled":
-        engine = "compiled-native"
-    elif native and engine != "compiled-native":
-        raise ValueError(f"native=True requires the 'compiled' engine, got "
-                         f"{engine!r}")
-    if memory_budget is not None or morsel_rows is not None:
-        if engine not in ("compiled", "compiled-native"):
+                       axis=axis, join_index=join_index,
+                       memory_budget=memory_budget, morsel_rows=morsel_rows)
+    if engine == "parallel":
+        # the shard planner runs the native pass itself (partial
+        # aggregates first) and the morsel wrap (per-shard partials
+        # stream their morsels)
+        from repro_torch.core import parallel as PAR
+        from repro_torch.launch import mesh as MESH
+        if mesh is None:
+            mesh = MESH.make_data_mesh(axis=axis, device=device_cache.device)
+        elif (MESH.canonical_device(mesh.device)
+              != MESH.canonical_device(device_cache.device)):
             raise ValueError(
-                "memory_budget/morsel_rows apply to the compiled and "
-                f"compiled-native engines, got {engine!r}")
-        # the morsel wrap BEFORE native annotation: the dispatch pass must
-        # see (and annotate) the partial aggregate the loop computes
-        from repro_torch.core import morsel as MO
-        with OT.span("morsel_plan", budget=memory_budget or 0,
-                     morsel_rows=morsel_rows or 0):
-            p = MO.plan_morsels(p, catalog, memory_budget=memory_budget,
-                                morsel_rows=morsel_rows)
-    if engine == "compiled-native":
-        from repro_torch.native import dispatch as ND
-        p, dispatch_report = ND.rewrite_plan(p, catalog, device_cache.device,
-                                             join_index=join_index)
+                f"mesh on {mesh.device} but the context's columns live on "
+                f"{device_cache.device}")
+        with OT.span("shard_plan", axis=axis, native=native):
+            p, dispatch_report = PAR.shard_plan(
+                p, catalog, mesh=mesh, axis=axis, native=native,
+                join_index=join_index, memory_budget=memory_budget,
+                morsel_rows=morsel_rows)
+    else:
+        if mesh is not None:
+            raise ValueError(
+                f"mesh= applies to the 'parallel' engine, got {engine!r}")
+        if native and engine == "compiled":
+            engine = "compiled-native"
+        elif native and engine != "compiled-native":
+            raise ValueError(f"native=True requires the 'compiled' or "
+                             f"'parallel' engine, got {engine!r}")
+        if memory_budget is not None or morsel_rows is not None:
+            if engine not in ("compiled", "compiled-native"):
+                raise ValueError(
+                    "memory_budget/morsel_rows apply to the compiled, "
+                    f"compiled-native and parallel engines, got {engine!r}")
+            # the morsel wrap BEFORE native annotation: the dispatch pass
+            # must see (and annotate) the partial aggregate the loop
+            # computes
+            from repro_torch.core import morsel as MO
+            with OT.span("morsel_plan", budget=memory_budget or 0,
+                         morsel_rows=morsel_rows or 0):
+                p = MO.plan_morsels(p, catalog, memory_budget=memory_budget,
+                                    morsel_rows=morsel_rows)
+        if engine == "compiled-native":
+            from repro_torch.native import dispatch as ND
+            p, dispatch_report = ND.rewrite_plan(
+                p, catalog, device_cache.device, join_index=join_index)
     eng = get_engine(engine)
-    if engine not in ("compiled", "compiled-native"):
+    if engine not in ("compiled", "compiled-native", "parallel"):
         # the stage and interpreted engines probe no cached join index
         key = template_key(engine, p, catalog)
         lowered = Lowered(p, catalog, eng, P.params_of(p), key,

@@ -18,8 +18,9 @@ Each match attempt bumps the JAX package's dispatch counters
 the pass leaves ``dispatch`` / ``dispatch.match`` spans.  Every launch of
 a fragment runs inside ``obs.export.kernel_scope("flare:<pattern>")``, so
 a profile shows each kernel under its pattern name.  The fault site
-``native.kernel`` fires once per fragment where ``compiled-native``
-compiles the template (:class:`NativeWholeQueryEngine`).
+``native.kernel`` fires once per fragment where an annotated template
+compiles (``stages.WholeQueryEngine.compile``: ``compiled-native`` and
+``parallel`` with ``native=True``).
 """
 from __future__ import annotations
 
@@ -36,7 +37,6 @@ from repro_torch.native import registry as R
 from repro_torch.obs import export as OX
 from repro_torch.obs import metrics as OM
 from repro_torch.obs import trace as OT
-from repro_torch.resilience import faults as FZ
 
 
 @dataclasses.dataclass(eq=False)
@@ -153,18 +153,10 @@ def rewrite_plan(p: P.Plan, catalog: P.Catalog, device: torch.device,
 class NativeWholeQueryEngine(S.WholeQueryEngine):
     """The whole-query engine under the name ``compiled-native``: it
     lowers a plan the dispatch pass has annotated (``stages.lower_plan``
-    runs the pass before it looks the engine up)."""
+    runs the pass before it looks the engine up), and its compile checks
+    the fault site ``native.kernel`` once per fragment."""
 
     name = "compiled-native"
-
-    def prepare_fragments(self, artifact) -> None:
-        # trust boundary: a fragment's kernel can be refused here, where
-        # the template prepares its kernels (the JAX package checks the
-        # same site while tracing each fragment, inside its compile),
-        # after the morsel loops around the fragments and before the
-        # program is built
-        for pattern in artifact.patterns:
-            FZ.fault_point("native.kernel", pattern=pattern)
 
 
 S.register_engine(NativeWholeQueryEngine())

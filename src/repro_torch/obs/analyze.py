@@ -90,14 +90,15 @@ def _dispatch_lines(report) -> List[str]:
 
 def explain_analyze(df, engine: str = "compiled", native: bool = False,
                     params: Optional[Dict[str, Any]] = None,
+                    mesh: Optional[Any] = None, axis: str = "data",
                     join_index: bool = True,
                     spans: bool = True) -> str:
     """Execute ``df`` once under the tracer and render the annotated
     plan + lifecycle report (the body of ``df.explain(analyze=True)``)."""
     from repro_torch.core import lower as L
     with OT.capture() as trace:
-        lowered = df.lower(engine=engine, native=native,
-                           join_index=join_index)
+        lowered = df.lower(engine=engine, native=native, mesh=mesh,
+                           axis=axis, join_index=join_index)
         compiled = lowered.compile()
         result = compiled.result(**(params or {}))
 

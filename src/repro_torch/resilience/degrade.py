@@ -5,7 +5,8 @@ When the compilation or execution of a template fails with an error on
 the closed *recoverable allowlist*, the template is re-lowered on the
 next rung of the ladder::
 
-    compiled-native -> compiled -> stage -> volcano
+    parallel -> compiled -> stage -> volcano
+    compiled-native -> compiled
 
 Each hop records a :class:`DegradeEvent` -- an obs counter
 (``degrade.events`` + per-transition), a ``degrade`` trace span, and a
@@ -13,8 +14,8 @@ provenance entry on ``CompileStats.degraded`` -- so a degraded answer is
 never silent.  The re-lower starts from the pre-rewrite plan the front
 end handed to ``lower_plan`` (stashed as ``_degrade_src``), so native
 annotation is redone for the weaker rung rather than patched around.
-The JAX package's ``parallel -> compiled`` rung arrives with
-``core/parallel.py``.
+A hop from ``parallel`` sheds the mesh (the ``compiled`` rung runs the
+whole spine at once) and keeps the axis name.
 
 The allowlist is the port's own, and it is closed (:func:`recoverable`).
 It must not hide a kernel: a hop from ``compiled-native`` to ``compiled``
@@ -34,6 +35,9 @@ launch, by checks that a weaker rung does not need:
   this rung's program failed at its fault site;
 * :class:`repro_torch.resilience.faults.IndexBuildError` -- the join-index
   infrastructure failed; weaker rungs sort in the program;
+* :class:`repro_torch.core.parallel.UnsupportedParallelPlan`, in the
+  compile phase only -- shard planning refused the plan's shape, before
+  any launch; the ``compiled`` rung runs it unsharded;
 * persist ``StoreCorrupt`` / ``StoreVersionMiss`` -- a disk artifact is
   untrustworthy; rebuilding from the plan is always correct.
 
@@ -71,6 +75,7 @@ LADDER: Dict[str, str] = {
     "compiled-native": "compiled",
     "compiled": "stage",
     "stage": "volcano",
+    "parallel": "compiled",
 }
 
 
@@ -83,12 +88,14 @@ def enabled() -> bool:
 def recoverable(err: BaseException, phase: str = "compile") -> bool:
     """Membership in the closed allowlist of errors the ladder may
     absorb in ``phase`` ("compile" or "execute").  Anything else
-    propagates typed.  ``KernelBudgetError`` is on the list only while a
-    template compiles: at execute time it is a kernel wrapper refusing
-    its arguments at launch."""
+    propagates typed.  ``KernelBudgetError`` and
+    ``UnsupportedParallelPlan`` are on the list only while a template
+    compiles: at execute time the first is a kernel wrapper refusing its
+    arguments at launch."""
+    from repro_torch.core.parallel import UnsupportedParallelPlan
     from repro_torch.kernels import KernelBudgetError
     from repro_torch.persist.store import StoreCorrupt, StoreVersionMiss
-    if isinstance(err, KernelBudgetError):
+    if isinstance(err, (KernelBudgetError, UnsupportedParallelPlan)):
         return phase == "compile"
     return isinstance(err, (CompileFault, IndexBuildError,
                             StoreCorrupt, StoreVersionMiss))
@@ -141,14 +148,15 @@ def _record(frm: str, to: str, phase: str,
 
 
 def _rung_kwargs(src: Dict[str, Any], rung: str) -> Dict[str, Any]:
-    """Re-lower kwargs for a weaker rung: native annotation is shed (that
-    is what degrading means); the morsel budget survives onto the
-    ``compiled`` rung only (the stage and interpreted rungs take no
-    budget); the context's device and compile caches and the join-index
-    preference carry over."""
+    """Re-lower kwargs for a weaker rung: native annotation and the mesh
+    are shed (that is what degrading means); the morsel budget survives
+    onto the ``compiled`` rung only (the stage and interpreted rungs take
+    no budget); the context's device and compile caches, the axis name
+    and the join-index preference carry over."""
     out_of_core = rung == "compiled"
     return dict(engine=rung, device_cache=src["device_cache"],
                 compile_cache=src["compile_cache"], native=False,
+                mesh=None, axis=src.get("axis", "data"),
                 join_index=src.get("join_index", True),
                 memory_budget=(src.get("memory_budget") if out_of_core
                                else None),

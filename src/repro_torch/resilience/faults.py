@@ -40,8 +40,8 @@ The sites carry the JAX package's names and error types:
   port has no XLA; the name is kept so that a ``FLARE_FAULTS`` spec means
   the same in both packages;
 * ``native.kernel`` -- once per native fragment, where the compile of a
-  ``compiled-native`` template prepares its kernels
-  (``native.dispatch.NativeWholeQueryEngine.compile``).  The JAX package
+  ``compiled-native`` or native ``parallel`` template prepares its
+  kernels (``stages.WholeQueryEngine.compile``).  The JAX package
   checks it while tracing the fragment, inside its compile; the port's
   fragments lower on every call, so the site sits at compile time;
 * ``index.build`` -- a join-index build (``core.engines.IndexCache``);

@@ -4,7 +4,7 @@ the CPU at SF 0.005:
 * ``core.engines.execute``, the one-shot front door (rows on each engine
   against the JAX package's);
 * ``core.stages.Engine`` and ``available_engines`` (the JAX package's
-  engines but ``parallel``, which comes with the sharded engine);
+  engines, the sharded ``parallel`` one included);
 * ``native.registry.get_pattern`` / ``available_patterns`` and
   ``native.dispatch.has_native_ops``;
 * ``relational.queries.join_micro`` (the paper's Fig. 6 join) on every
@@ -90,8 +90,7 @@ def test_execute_without_a_card_asks_for_the_cpu(ctxs):
 
 def test_available_engines_match_reference():
     assert PC.available_engines() == S.available_engines()
-    assert set(S.available_engines()) == set(JC.available_engines()) - {
-        "parallel"}
+    assert set(S.available_engines()) == set(JC.available_engines())
     with pytest.raises(ValueError, match="available"):
         S.get_engine("bogus")
 

@@ -944,3 +944,32 @@ def test_morsel_runs_launch_once_per_morsel_on_card(card_ctx, qname, rows):
     assert sum(launched.values()) == launched[mod]
     for want in (plain, plain_morsels, whole):
         assert_results_equal(want, got, rtol=1e-3, msg=qname)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qname", ["q1", "q3", "q6", "q14", "q19"])
+@pytest.mark.parametrize("n_shards", [1, 3, 8])
+def test_parallel_runs_launch_once_per_shard_on_card(card_ctx, qname,
+                                                     n_shards):
+    """The sharded engine on the card: the fragment's kernel runs once per
+    shard on views of the device columns, and the result equals the
+    generic lowering and the monolithic kernel run."""
+    from repro_torch.core import parallel as PAR
+    from repro_torch.launch.mesh import make_data_mesh
+    mod = {"q1": SR, "q6": FA}.get(qname, JP)
+    build = Q.QUERIES[qname]
+    plain = build(card_ctx).lower().compile()()
+    whole = build(card_ctx).lower(native=True).compile()()
+    low = build(card_ctx).lower(engine="parallel", native=True,
+                                mesh=make_data_mesh(n_shards))
+    assert PAR.find_shard_node(low.plan()).n_shards == n_shards
+    compiled = low.compile()
+    before = (FA.launches, SR.launches, JP.launches)
+    got = compiled()
+    torch.cuda.synchronize()
+    after = (FA.launches, SR.launches, JP.launches)
+    launched = dict(zip((FA, SR, JP), (a - b for a, b in zip(after, before))))
+    assert launched[mod] == n_shards
+    assert sum(launched.values()) == launched[mod]
+    for want in (plain, whole):
+        assert_results_equal(want, got, rtol=1e-3, msg=qname)

@@ -19,9 +19,10 @@ package's ``compiled`` engine and the port's, each lowered with the same
 * the fault site ``morsel.loop``: it degrades at compile time, with the
   JAX package's events, and never at execute time.
 
-Not ported here: the JAX package's parallel-engine morsel tests (the
-sharded engine comes with ``core/parallel.py``), its paged join-probe
-slab tests and its Pallas block-geometry tests (TPU artifacts).
+The JAX package's parallel-engine morsel tests (morsels per shard, a
+gather plan under a budget) are ported with the sharded engine, in
+``tests/test_torch_parallel.py``.  Not ported: its paged join-probe slab
+tests and its Pallas block-geometry tests (TPU artifacts).
 """
 import numpy as np
 import pytest

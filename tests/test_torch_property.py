@@ -19,8 +19,8 @@ package's:
   volcano oracle, at the JAX package's tolerances;
 * optimizer invariance through ``engines.execute``;
 * the morsel merge: any ``morsel_rows`` gives the monolithic answer on
-  ``compiled`` and ``compiled-native`` (it stands in for the sharded
-  merge property until ``core/parallel.py``'s engine is ported);
+  ``compiled`` and ``compiled-native`` (the sharded merge property and
+  the sharded engine's are in ``tests/test_torch_parallel.py``);
 * the join-index cache under adversarial keys, the dictionary round
   trip, and ``segmented_sum``'s plain version on adversarial codes.
 

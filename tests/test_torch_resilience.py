@@ -2,8 +2,8 @@
 (``repro_torch.resilience``), on the CPU at SF 0.005, against the JAX
 package's (``repro.resilience``, ``tests/test_resilience.py``).
 
-* the ladder's shape (the JAX package's without its ``parallel`` rung)
-  and its closed allowlist, which holds no error that can stand for a
+* the ladder's shape (the JAX package's, its ``parallel`` rung
+  included) and its closed allowlist, which holds no error that can stand for a
   failed kernel: an nvcc failure, a CUDA or ``torch.cuda`` error and
   ``UnsupportedDeviceError`` all raise typed with the ladder on;
 * per fault site and schedule, the same fault plan gives the same
@@ -35,6 +35,7 @@ from repro.resilience import degrade as JDG
 from repro.resilience import faults as JFZ
 from repro_torch import resilience as RZ
 from repro_torch.core import CompileCache, FlareContext
+from repro_torch.core.parallel import UnsupportedParallelPlan
 from repro_torch.kernels import (KernelBudgetError, UnsupportedDeviceError,
                                  on_card)
 from repro_torch.kernels import cuda_build as CB
@@ -117,8 +118,7 @@ def hops(events):
 
 
 def test_ladder_shape():
-    assert DG.LADDER == {k: v for k, v in JDG.LADDER.items()
-                         if k != "parallel"}
+    assert DG.LADDER == JDG.LADDER
 
 
 @pytest.mark.parametrize("err,absorbed", [
@@ -127,6 +127,8 @@ def test_ladder_shape():
     (FZ.IndexBuildError("x"), True),
     (StoreCorrupt("x"), True),
     (StoreVersionMiss("x"), True),
+    # shard planning refused the plan before any launch
+    (UnsupportedParallelPlan("x"), True),
     # a kernel that failed to build or run must never degrade
     (CB.UnitBuildError("nvcc failed"), False),
     (RuntimeError("flare_filter_agg: CUDA error 700 at launch"), False),
@@ -149,6 +151,7 @@ def test_recoverable_allowlist_is_closed(err, absorbed):
     (FZ.IndexBuildError("x"), True),
     (StoreCorrupt("x"), True),
     (StoreVersionMiss("x"), True),
+    (UnsupportedParallelPlan("x"), False),
     (CB.UnitBuildError("nvcc failed"), False),
     (RuntimeError("flare_filter_agg: CUDA error 700 at launch"), False),
     (UnsupportedDeviceError("no kernel for meta"), False),
@@ -509,6 +512,7 @@ def test_clear_unlink_race_is_missing_ok(tmp_path, monkeypatch):
 _CHILD = """
 import json
 from repro_torch.core import CompileCache, FlareContext
+from repro_torch.core.parallel import UnsupportedParallelPlan
 from repro_torch.relational import queries as Q
 ctx = FlareContext(device="cpu")
 Q.register_tpch(ctx, sf=%(sf)r)
