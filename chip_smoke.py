@@ -191,7 +191,24 @@ Phases, in order; any failure exits non-zero:
    launch of the ``flare_filter_agg`` kernel, found by the kernel's
    correlation id, lies inside the ``flare:filter-scalar-agg`` range;
    ``explain(analyze=True)`` of q6 and q19 naming the fired pattern and
-   the index provenance.  Its lines are tagged ``[runtime]``.
+   the index provenance.  Its lines are tagged ``[runtime]``;
+14. the LM train step, after phases 6-7 (the TPC-H context and the
+   serving weights released): full-width ``qwen3-0.6b`` (f32 master
+   weights, bf16 compute, remat ``full``, ``attn_impl="ring"``: the
+   blockwise attention on one card) through ``launch.train.train_loop``
+   at B 4 x S 4096 on ``LMDataPipeline.synthetic`` (400 documents
+   through the ``compiled`` ETL); first one bf16 step against the same
+   step computed in f32 on one row (the loss within one bf16 rounding,
+   every leaf's gradient at cosine >= 0.99); then 20 steps of
+   ``warmup_cosine`` with a checkpoint at steps 10 and 20 (the mean loss
+   of the last 3 below the first 3's), and a fresh run resumed from step
+   10 (each loss of steps 10-19 within 1e-3 relative of the first
+   run's); the attention kernels' launch counts reset before and read
+   after (none may run: neither has a backward pass); step ms (median,
+   host clock after a sync), tokens/s, peak device memory, the
+   checkpoint's bytes and save and restore ms, the step's bound; one
+   profiled step (device ms, busy share, top kernels).  Its lines are
+   tagged ``[train]``.
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1376,7 +1393,9 @@ def lm_main_path(torch, Model, serve_llm, FL, DA, cfg, params, tokens,
         "forward pallas f32 vs f32 blockwise", noise)
     del exact
     out["forward_ms"] = host_ms(torch, forward, runs=5)
-    loss, metrics = model.loss(params, {"tokens": tokens, "labels": labels})
+    with torch.no_grad():      # scoring: no graph over the logits
+        loss, metrics = model.loss(params, {"tokens": tokens,
+                                            "labels": labels})
     out["loss"] = float(loss)
     check(math.isfinite(out["loss"]) and
           abs(out["loss"] - math.log(cfg.vocab)) < 3.0,
@@ -1553,6 +1572,231 @@ def lm_phases(torch, seed: int, launches_out: dict) -> list:
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phases 6-7 "
         f"took {time.perf_counter() - t0:.1f} s")
     return records
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the LM train step (qwen3-0.6b at full width)
+# ---------------------------------------------------------------------------
+
+#: train_4k's length; its batch of 256 cut to 4 (one card)
+TRAIN_BATCH, TRAIN_SEQ = 4, 4096
+#: 20 steps of warmup_cosine (peak 1e-3, 5 warm-up steps), a checkpoint
+#: every 10; the resumed run restores step 10 and runs steps 10-19 again
+TRAIN_STEPS, TRAIN_CKPT, TRAIN_LR, TRAIN_WARMUP = 20, 10, 1e-3, 5
+#: documents for the run: 92 rows of 4097 tokens, 23 batches (no wrap)
+TRAIN_DOCS = 400
+#: the bf16 step against the f32 step: B 1 of the same batch
+COMPARE_BATCH = 1
+#: bf16 vs f32: the loss within one bf16 rounding (2^-7 relative), each
+#: leaf's gradient at cosine >= 0.99
+LOSS_ROUNDING, GRAD_COSINE = 2.0 ** -7, 0.99
+#: a resumed step's loss against the uninterrupted run's: the embedding's
+#: backward accumulates with atomics on the card, so the two runs differ
+#: in the order of some f32 sums (not bit for bit): relative 1e-3 at most
+RESUME_RTOL = 1e-3
+
+
+def train_bound_ms(cfg, n_params: int, batch: int, seq: int) -> float:
+    """The least time of one step on the card: 6 N T matmul flops (forward
+    and backward of every parameter for T tokens) plus causal attention's
+    forward and backward, 3 x 2 S^2 D flops per (sequence, layer, query
+    head), at the bf16 tensor-core rate; no recomputation counted."""
+    tokens = batch * seq
+    attn = 3 * 2 * seq * seq * cfg.head_dim_ * cfg.n_heads * cfg.n_layers \
+        * batch
+    return (6 * n_params * tokens + attn) / H100_BF16_OPS_PER_S * 1e3
+
+
+def bf16_vs_f32(torch, Model, ST, cfg, state, batch) -> dict:
+    """One bf16 step against the same step computed in f32 on
+    :data:`COMPARE_BATCH` rows of ``batch``: the loss and each leaf's
+    gradient."""
+    from repro_torch.models import param as PM
+    small = {k: v[:COMPARE_BATCH] for k, v in batch.items()}
+    loss, _, g16 = ST.loss_and_grads(Model(cfg), state["params"], small)
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    loss32, _, g32 = ST.loss_and_grads(Model(f32), state["params"], small)
+    want = dict(PM.flatten_with_paths(g32))
+    cos = {}
+    for name, g in PM.flatten_with_paths(g16):
+        a, b = g.double().flatten(), want[name].double().flatten()
+        cos[name] = float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+    out = {"batch": COMPARE_BATCH, "loss_bf16": float(loss),
+           "loss_f32": float(loss32),
+           "loss_rel_diff": abs(float(loss) / float(loss32) - 1),
+           "min_grad_cosine": min(cos.values()),
+           "min_grad_cosine_leaf": min(cos, key=cos.get)}
+    check(out["loss_rel_diff"] <= LOSS_ROUNDING,
+          f"bf16 loss {out['loss_bf16']} vs f32 {out['loss_f32']}: more "
+          f"than one bf16 rounding apart")
+    check(out["min_grad_cosine"] >= GRAD_COSINE,
+          f"bf16 vs f32 gradient cosine {cos}")
+    del g16, g32, want
+    return out
+
+
+def train_profile(torch, step_fn, state, batch) -> dict:
+    """One profiled train step after a warm one: device ms, busy share
+    (of the profiled step's wall), the kernels that take most of the
+    device time.  Device events only: a step launches some 110 000
+    kernels, and the host-side events would multiply the profiler's own
+    post-processing (about 100 s with them)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    done = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: done.append(p.key_averages())
+                 ) as prof:
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    check(len(done) == 1, "the profiler recorded no step")
+    kernels = [e for e in done[0] if device_work(e)]
+    dev = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(dev > 0, "the profile of a train step holds no device time")
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    return {"wall_ms": wall, "device_ms": dev, "device_busy_share":
+            dev / wall, "kernels": sum(e.count for e in kernels),
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                    for e in top]}
+
+
+def train_phase(torch, seed: int) -> dict:
+    """Phase 14: the trainer's main path at full width -- the
+    Flare-built data pipeline, init from the seed, one bf16 step against
+    f32, 20 steps with checkpoints, a resume from step 10 -- with the
+    attention kernels' launch counts reset before and read after (none:
+    training takes the blockwise route), then one profiled step."""
+    import shutil
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import LMDataPipeline
+    from repro_torch.kernels.decode_attention import kernel as DA
+    from repro_torch.kernels.flash_attention import kernel as FL
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import TrainRun, train_loop
+    from repro_torch.models.modeling import Model
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+
+    t_phase = time.perf_counter()
+    cfg = get(LM_ARCH)
+    check(cfg.attn_impl == "ring" and cfg.remat == "full",
+          f"{LM_ARCH} trains with attn_impl {cfg.attn_impl}, remat "
+          f"{cfg.remat}")
+    model = Model(cfg)
+    n_params = model.n_params()
+    out = {"arch": LM_ARCH, "params": n_params, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+           "remat": cfg.remat, "attn_impl": cfg.attn_impl}
+    FL.launches = FL.launches_mma = FL.launches_cuda_cores = 0
+    DA.launches = 0
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    parts = {}
+
+    def lap(name, t_start):
+        parts[name] = time.perf_counter() - t_start
+        return time.perf_counter()
+
+    # bf16 against f32 on the first batch, from the seed's state
+    t0 = time.perf_counter()
+    pipe = LMDataPipeline.synthetic(TRAIN_SEQ, TRAIN_BATCH,
+                                    n_docs=TRAIN_DOCS, seed=seed)
+    out["pipeline"] = {"rows": len(pipe.rows),
+                       "batches_per_epoch": pipe.batches_per_epoch}
+    t0 = lap("pipeline", t0)
+    check(pipe.batches_per_epoch >= TRAIN_STEPS,
+          f"{pipe.batches_per_epoch} batches for {TRAIN_STEPS} steps")
+    state = ST.init_train_state(model, seed)
+    out["bf16_vs_f32"] = bf16_vs_f32(torch, Model, ST, cfg, state,
+                                     pipe.next_batch())
+    del state
+    torch.cuda.empty_cache()
+    t0 = lap("bf16_vs_f32", t0)
+    log(f"[train] bf16 vs f32 step: {json.dumps(out['bf16_vs_f32'])}")
+
+    # 20 steps through the trainer, then steps 10-19 again from step 10
+    ckpt_dir = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(arch=LM_ARCH, reduced=False, steps=TRAIN_STEPS,
+              batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+              warmup=TRAIN_WARMUP, ckpt_dir=ckpt_dir,
+              ckpt_every=TRAIN_CKPT, seed=seed, n_docs=TRAIN_DOCS,
+              log_every=5, device="cuda")
+    full = train_loop(TrainRun(**kw))
+    torch.cuda.synchronize()
+    t0 = lap("run_20_steps", t0)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["resident_gb"] = resident / 1e9
+    losses = full["losses"]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    check(last < first, f"the loss did not fall: first 3 {first}, last 3 "
+          f"{last}")
+    step_ms = [t * 1e3 for t in full["step_s"][1:]]
+    out.update(losses=losses, first3=first, last3=last,
+               step_ms_first=full["step_s"][0] * 1e3,
+               step_ms=float(np.median(step_ms)), step_ms_min=min(step_ms),
+               step_ms_max=max(step_ms))
+    out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (out["step_ms"] / 1e3)
+    out["bound_ms"] = train_bound_ms(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    out["bound_share"] = out["bound_ms"] / out["step_ms"]
+    torch.cuda.empty_cache()
+
+    # the latest checkpoint is step 20's: drop it, so the trainer
+    # resumes from step 10's
+    shutil.rmtree(os.path.join(ckpt_dir, f"step_{TRAIN_STEPS:010d}"))
+    resumed = train_loop(TrainRun(**kw))
+    t0 = lap("resumed_10_steps", t0)
+    check(resumed["start_step"] == TRAIN_CKPT,
+          f"resumed at {resumed['start_step']}, not {TRAIN_CKPT}")
+    diffs = [abs(a / b - 1) for a, b in zip(resumed["losses"],
+                                            losses[TRAIN_CKPT:])]
+    check(len(diffs) == TRAIN_STEPS - TRAIN_CKPT
+          and max(diffs) <= RESUME_RTOL,
+          f"resumed losses {resumed['losses']} vs {losses[TRAIN_CKPT:]}")
+    ck = full["checkpoint"]
+    out["checkpoint"] = {"bytes": ck["bytes"], "save_ms": ck["save_ms"],
+                         "restore_ms": resumed["checkpoint"]["restore_ms"],
+                         "resume_max_rel_diff": max(diffs),
+                         "resume_rtol": RESUME_RTOL}
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out["launches"] = {"flash_attention": FL.launches,
+                       "decode_attention": DA.launches}
+    check(FL.launches == 0 and DA.launches == 0,
+          f"training launched the attention kernels {out['launches']}")
+    torch.cuda.empty_cache()
+
+    # one profiled step on a fresh state
+    state = ST.init_train_state(model, seed)
+    step_fn = ST.make_train_step(model, AdamWConfig(
+        lr=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)))
+    batch = ST.batch_to(pipe.next_batch(), "cuda")
+    out["profile"] = train_profile(torch, step_fn, state, batch)
+    out["profile"]["device_ms_over_step_ms"] = (
+        out["profile"]["device_ms"] / out["step_ms"])
+    del state, batch
+    torch.cuda.empty_cache()
+    lap("profile", t0)
+    out["parts_s"] = parts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] {json.dumps(out)}")
+    log(f"[train] step {out['step_ms']:.1f} ms (median of "
+        f"{len(step_ms)}), {out['tokens_per_s']:.0f} tokens/s, bound "
+        f"{out['bound_ms']:.1f} ms, peak {out['peak_gb']:.2f} GB, "
+        f"checkpoint {ck['bytes']} bytes saved in "
+        f"{json.dumps([round(x) for x in ck['save_ms']])} ms, restored in "
+        f"{out['checkpoint']['restore_ms']:.0f} ms; phase 14 took "
+        f"{out['phase_s']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3227,6 +3471,8 @@ def run(sf: float, seed: int) -> int:
     lm_records = lm_phases(torch, seed, lm_launches)
     for r in lm_records:
         r["launches"] = lm_launches[r["name"].split("[")[0]]
+    torch.cuda.empty_cache()
+    train_phase(torch, seed)
     log(f"[summary] total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records + lm_records}))
     print(card)

@@ -76,6 +76,21 @@ def on_card(t: torch.Tensor) -> bool:
                                  f"{t.device}")
 
 
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` when autograd would record a call of
+    the attention kernel ``name``: grad is enabled and an input requires
+    grad.  Neither package has a backward pass for these kernels (the JAX
+    package's Pallas kernels define no VJP, and ``jax.grad`` through them
+    fails), and the CUDA kernels write their output through a raw pointer
+    that autograd does not see -- without this check the inputs would get
+    no gradient and no error.  It holds on every device, the plain
+    versions' too, so the CPU fails as the card does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the kernel has no backward pass (in neither package); "
+            f"train with attn_impl 'blockwise', 'einsum' or 'ring'")
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Body:
     """One fragment's generated per-row function, in CUDA C and in torch.

@@ -36,7 +36,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import KernelBudgetError, on_card
+from repro_torch.kernels import (KernelBudgetError, on_card,
+                                 refuse_autograd)
 from repro_torch.kernels import cuda_build as CB
 
 #: Kernel launches by :func:`decode_attention` (one per call).
@@ -284,7 +285,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q ``[B,H,D]``; k/v cache ``[B,Hkv,S,D]``; lengths ``[B]`` ->
     ``[B,H,D]`` in q's dtype (the JAX package's ``ops.decode_attention``).
     CPU tensors take the plain version.  On the card: one launch, no host
-    sync (a call can be captured in a CUDA graph)."""
+    sync (a call can be captured in a CUDA graph).  Under autograd (an
+    input requiring grad) it raises ``NotImplementedError``: there is no
+    backward pass (:func:`repro_torch.kernels.refuse_autograd`)."""
+    refuse_autograd("decode_attention", q, k, v)
     if not on_card(q):
         _check(q, k, v, lengths)
         return decode_attention_plain(q, k, v, lengths, scale=scale)

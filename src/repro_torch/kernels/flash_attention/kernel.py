@@ -31,7 +31,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import KernelBudgetError, on_card
+from repro_torch.kernels import (KernelBudgetError, on_card,
+                                 refuse_autograd)
 from repro_torch.kernels import cuda_build as CB
 
 #: Kernel launches by :func:`flash_attention_core`: all of them, and by
@@ -122,7 +123,10 @@ def flash_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          scale: Optional[float] = None) -> torch.Tensor:
     """q ``[BH,S,D]``; k/v ``[BHkv,S,D]`` with BH % BHkv == 0 -> ``[BH,S,D]``
-    in q's dtype.  CPU tensors take the plain version."""
+    in q's dtype.  CPU tensors take the plain version.  Under autograd
+    (an input requiring grad) it raises ``NotImplementedError``: there is
+    no backward pass (:func:`repro_torch.kernels.refuse_autograd`)."""
+    refuse_autograd("flash_attention", q, k, v)
     _check_shapes(q, k, v)
     if not on_card(q):
         return flash_attention_core_plain(q, k, v, causal=causal,

@@ -2,21 +2,26 @@
 
     m = Model(cfg)                            # device="cuda" by default
     params = m.init(seed)                     # or m.params_from_numpy(tree)
-    loss, metrics = m.loss(params, batch)
+    aparams = m.abstract_params()             # meta tensors (no storage)
+    loss, metrics = m.loss(params, batch)     # differentiable
     logits, aux = m.forward(params, batch)
     logits, caches = m.prefill(params, batch, cache_len=...)
     logits, caches = m.decode_step(params, tokens, caches, length)
 
-The dense family only; the entry points take no gradient.
+The dense family only.  ``loss`` is what the train step differentiates
+(``launch/steps.py``); ``forward``, ``prefill`` and ``decode_step`` take
+no gradient.  ``input_specs(cfg, shape)`` gives the ``meta`` stand-ins of
+every model input of an (arch x shape) cell, and ``demo_batch`` a
+concrete random batch of those shapes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed.shardings import ShardingCtx, null_ctx
 from repro_torch.models import param as PM
 from repro_torch.models import transformer as TF
@@ -29,6 +34,11 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("repro_torch: no CUDA device; the LM path runs on "
                            "the GPU unless the caller passes device='cpu'")
     return dev
+
+
+def enc_len_of(cfg: ArchConfig, seq_len: int) -> int:
+    """Audio frontend stub: 1 frame embedding per 4 decoder tokens."""
+    return max(seq_len // 4, 8)
 
 
 @dataclasses.dataclass
@@ -56,13 +66,20 @@ class Model:
         """The JAX package's parameters (as numpy arrays) on this device."""
         return PM.params_from_numpy(tree, self.spec, device=self.device)
 
+    def abstract_params(self) -> Dict:
+        """The parameter tree as ``meta`` tensors: shapes and dtypes, no
+        storage (the JAX package's ``ShapeDtypeStruct``s)."""
+        return PM.abstract_params(self.spec)
+
     def n_params(self) -> int:
         return PM.count_params(self.spec)
 
     # -- entry points ---------------------------------------------------------
 
-    @torch.no_grad()
     def loss(self, params, batch, sc: Optional[ShardingCtx] = None):
+        """(loss, metrics).  Differentiable: autograd records it when the
+        parameters require grad; wrap a scoring call in
+        ``torch.no_grad()``."""
         return TF.lm_loss(self.cfg, params, batch, sc or null_ctx())
 
     @torch.no_grad()
@@ -89,3 +106,65 @@ class Model:
             lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                   device=self.device),
             self.cache_spec(batch, cache_len))
+
+
+# ---------------------------------------------------------------------------
+# input specs per (arch x shape) cell
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """Returns (batch specs as ``meta`` tensors, logical axes per input)
+    for a cell.
+
+    * train:   tokens + labels (+ modality extras)
+    * prefill: tokens (+ extras)
+    * decode:  single-token batch; caches come from ``Model.cache_spec``.
+    """
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    cdt = cfg.compute_dtype
+    specs: Dict[str, torch.Tensor] = {}
+    axes: Dict[str, Tuple] = {}
+
+    def add(name, shp, dtype, ax):
+        specs[name] = torch.empty(shp, dtype=dtype, device="meta")
+        axes[name] = ax
+
+    if shape.kind == "decode":
+        add("tokens", (b,), i32, ("batch",))
+        return specs, axes
+
+    add("tokens", (b, s), i32, ("batch", "seq"))
+    if shape.kind == "train":
+        add("labels", (b, s), i32, ("batch", "seq"))
+    if cfg.frontend == "vision":
+        add("prefix", (b, cfg.frontend_len, cfg.d_model), cdt,
+            ("batch", None, "act_embed"))
+    if cfg.family == "encdec":
+        add("enc_embeds", (b, enc_len_of(cfg, s), cfg.d_model), cdt,
+            ("batch", None, "act_embed"))
+    return specs, axes
+
+
+def demo_batch(cfg: ArchConfig, shape: ShapeConfig,
+               gen: Union[int, torch.Generator] = 0,
+               device: Union[str, torch.device] = "cuda") -> Dict:
+    """Concrete random batch matching ``input_specs``: integers in
+    ``[0, vocab - 1)`` and normals, drawn from ``gen`` (a seed, or a
+    generator on ``device``) input by input in the specs' order."""
+    dev = resolve_device(device)
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=dev).manual_seed(int(gen))
+    specs, _ = input_specs(cfg, shape)
+    out = {}
+    for name, spec in specs.items():
+        if not spec.dtype.is_floating_point:
+            out[name] = torch.randint(0, max(cfg.vocab - 1, 2), spec.shape,
+                                      generator=gen, device=dev,
+                                      dtype=spec.dtype)
+        else:
+            out[name] = torch.randn(spec.shape, generator=gen, device=dev,
+                                    dtype=torch.float32).to(spec.dtype)
+    return out

@@ -9,10 +9,14 @@ with the JAX package's sharding rules).  The consumers here:
 * ``params_from_numpy`` -- the weight carry-over: the JAX package's
   parameter tree as numpy arrays (stacked layer axis included), checked
   leaf by leaf against the spec,
+* ``abstract_params``   -- the same tree on the ``meta`` device (shapes
+  and dtypes, no storage): the counterpart of ``ShapeDtypeStruct``s,
 * ``cast_compute``      -- the working-precision copy,
-* ``count_params``.
+* ``count_params``, ``tree_bytes``.
 
-Tree order is sorted dict keys, as ``jax.tree`` flattens dicts.
+Tree order is sorted dict keys, as ``jax.tree`` flattens dicts, and
+:func:`flatten_with_paths` names a leaf by its ``"/"``-joined keys, as
+the JAX package's checkpoint manager does (``params/layers/attn/wq``).
 """
 from __future__ import annotations
 
@@ -53,6 +57,28 @@ def tree_map(fn: Callable, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_unflatten(items) -> Any:
+    """The nested dict of ``(path, leaf)`` pairs (the inverse of
+    :func:`tree_items`); a single pair with the empty path is a leaf."""
+    items = list(items)
+    if len(items) == 1 and items[0][0] == ():
+        return items[0][1]
+    out: Dict = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def flatten_with_paths(tree) -> List[Tuple[str, Any]]:
+    """``(name, leaf)`` pairs in tree order; a name is the leaf's keys
+    joined by ``"/"``."""
+    return [("/".join(str(k) for k in path), leaf)
+            for path, leaf in tree_items(tree)]
 
 
 def _init_one(spec: ArraySpec, gen: torch.Generator,
@@ -102,7 +128,7 @@ def params_from_numpy(tree, spec, *, device="cuda") -> Dict:
         a = np.asarray(got[path])
         if a.dtype.kind not in "biuf":
             a = a.astype(np.float32)      # bf16 (ml_dtypes) has no torch twin
-        return torch.tensor(a).to(device=device, dtype=s.dtype)
+        return torch.tensor(a, device=device).to(s.dtype)
 
     out: Dict = {}
     for path, s in want.items():
@@ -127,5 +153,18 @@ def cast_compute(tree, dtype):
     return tree_map(one, tree)
 
 
+def abstract_params(tree) -> Dict:
+    """Tensors of the spec's shapes and dtypes on the ``meta`` device:
+    no storage is allocated."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), tree)
+
+
 def count_params(tree) -> int:
     return sum(int(np.prod(leaf.shape)) for _, leaf in tree_items(tree))
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of a tree of specs or tensors."""
+    return sum(int(np.prod(leaf.shape)) * leaf.dtype.itemsize
+               for _, leaf in tree_items(tree))

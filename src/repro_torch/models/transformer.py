@@ -3,24 +3,29 @@
 One parameter tree + entry points per model:
 
 * ``forward(cfg, params, batch, sc)``  -- full-sequence logits,
-* ``lm_loss(cfg, params, batch, sc)``  -- forward + masked CE (forward
-  only: no gradient is taken in the port yet),
+* ``lm_loss(cfg, params, batch, sc)``  -- forward + masked CE; the train
+  step (``launch/steps.py``) differentiates it,
 * ``prefill(cfg, params, batch, sc, cache_len)`` -- full-sequence forward
   emitting per-layer caches + last-position logits,
 * ``decode_step(cfg, params, tokens, caches, length, sc)`` -- one token.
 
 The parameter tree is the JAX package's: per-layer leaves are stacked on
 a leading ``layers`` axis, and the layers run as a Python loop over that
-axis.  The JAX package's ``scan_layers`` and ``remat`` knobs shape its
-traced program and its backward pass; here the forward runs eagerly and
-takes no gradient, so they have no effect.  Other families (moe, ssm,
+axis (the JAX package's ``scan_layers`` shapes its traced program and
+has no effect here).  ``remat`` applies, as in the JAX package, to each
+layer of a forward that autograd records (:func:`_remat`): ``"full"``
+keeps only each layer's input for the backward pass and recomputes the
+rest, ``"dots"`` also keeps the outputs of the products without batch
+dimensions, ``"none"`` keeps everything.  Other families (moe, ssm,
 hybrid, encdec) raise "not yet ported".
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as CK
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.shardings import ShardingCtx
@@ -97,6 +102,32 @@ def _dense_block(cfg, p, x, positions, sc):
     return x, torch.zeros((), dtype=F32, device=x.device)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of products without batch dimensions (the JAX
+    package's ``dots_with_no_batch_dims_saveable``); recompute the rest.
+    torch's einsum lowers such a product to ``bmm`` with a batch extent
+    of 1 (the projections, the MLP, the head), and a product with batch
+    dimensions (attention's) to ``bmm`` over them."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CK.CheckpointPolicy.MUST_SAVE
+    return CK.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ArchConfig, fn: Callable) -> Callable:
+    """``fn`` under the config's activation checkpointing -- only when
+    autograd records (scoring and serving run ``fn`` as it is)."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            CK.create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: CK.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _embed_tokens(cfg, params, tokens, sc: ShardingCtx):
     x = params["embed"][tokens].to(cfg.compute_dtype)
     return sc.constrain(x, "batch", "seq", "act_embed")
@@ -115,7 +146,13 @@ def forward(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S_total,V] in the compute dtype, aux_loss)."""
     require_dense(cfg)
-    params = PM.cast_compute(params, cfg.compute_dtype)
+    # the embedding stays in its own dtype: the gather reads the master
+    # weights and casts what it read, the same values as a gather from
+    # the cast copy, but the gather's backward then sums each token's
+    # gradients in the parameter's dtype (f32), not in bf16
+    params = dict(PM.cast_compute({k: v for k, v in params.items()
+                                   if k != "embed"}, cfg.compute_dtype),
+                  embed=params["embed"])
     x = _embed_tokens(cfg, params, batch["tokens"], sc)
     prefix = batch.get("prefix")          # vision stub: [B,P,d]
     if prefix is not None:
@@ -125,8 +162,9 @@ def forward(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx
                              device=x.device).expand(b, s)
     aux_total = torch.zeros((), dtype=F32, device=x.device)
     for i in range(_n_layers(params)):
-        x, a = _dense_block(cfg, layer_params(params["layers"], i), x,
-                            positions, sc)
+        lp = layer_params(params["layers"], i)
+        x, a = _remat(cfg, lambda xx, lp=lp: _dense_block(
+            cfg, lp, xx, positions, sc))(x)
         aux_total = aux_total + a
     x = L.rms_norm(params["final_norm"], x)
     logits = sc.constrain(_head(cfg, params, x), "batch", "seq", "act_mlp")

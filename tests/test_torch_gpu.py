@@ -973,3 +973,82 @@ def test_parallel_runs_launch_once_per_shard_on_card(card_ctx, qname,
     assert sum(launched.values()) == launched[mod]
     for want in (plain, whole):
         assert_results_equal(want, got, rtol=1e-3, msg=qname)
+
+
+# ---------------------------------------------------------------------------
+# the LM train step on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs import get as get_arch  # noqa: E402
+from repro_torch.launch.steps import (init_train_state,  # noqa: E402
+                                      loss_and_grads, make_train_step)
+from repro_torch.models import param as PM  # noqa: E402
+from repro_torch.models.modeling import Model  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
+
+
+def _lm_batch(seq, batch, seed=0):
+    toks = np.random.default_rng(seed).integers(
+        0, 512, (batch, seq + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl,seq,batch", [("einsum", 64, 2),
+                                            ("blockwise", 2048, 1)])
+def test_train_step_on_card_matches_cpu(card, impl, seq, batch):
+    """One reduced (f32) train step on the card against the same step on
+    the CPU from the same state: loss and grad norm at rtol 1e-4,
+    gradients per leaf within 1e-4 of the leaf's largest (cuBLAS and the
+    CPU sum in other orders), parameters where |g| is above 1e-3 of the
+    leaf's largest (a rounding-noise gradient may flip AdamW's first move
+    of +-lr) or exactly 0 on both, to 1e-5 + 1e-4 |p|."""
+    cfg = get_arch("qwen3-0.6b").reduced(attn_impl=impl)
+    host, dev = Model(cfg, device="cpu"), Model(cfg, device=card)
+    s_cpu = init_train_state(host, 0)
+    s_card = PM.tree_map(lambda t: t.to(card), s_cpu)
+    b = _lm_batch(seq, batch)
+    _, _, g_cpu = loss_and_grads(host, s_cpu["params"], b)
+    _, _, g_card = loss_and_grads(dev, s_card["params"], b)
+    opt = AdamWConfig(lr=1e-3)
+    s_cpu, m_cpu = make_train_step(host, opt)(s_cpu, b)
+    s_card, m_card = make_train_step(dev, opt)(s_card, b)
+    for k in ("loss", "grad_norm", "nll", "tokens"):
+        np.testing.assert_allclose(float(m_card[k]), float(m_cpu[k]),
+                                   rtol=1e-4, err_msg=k)
+    want_g = dict(PM.flatten_with_paths(g_cpu))
+    want_p = dict(PM.flatten_with_paths(s_cpu["params"]))
+    for name, g in PM.flatten_with_paths(g_card):
+        g, wg = g.cpu(), want_g[name]
+        scale = float(wg.abs().max())
+        assert float((g - wg).abs().max()) <= 1e-4 * scale, name
+    for name, p in PM.flatten_with_paths(s_card["params"]):
+        wg = want_g[name]
+        keep = (wg.abs() > 1e-3 * wg.abs().max()) | (wg == 0)
+        np.testing.assert_allclose(p.cpu()[keep].numpy(),
+                                   want_p[name][keep].numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_attention_kernels_refuse_autograd_on_card(card):
+    """attn_impl="pallas" under autograd raises on the card, where the
+    kernels would otherwise leave the attention weights without a
+    gradient."""
+    cfg = get_arch("qwen3-0.6b").reduced(attn_impl="pallas",
+                                         compute_dtype=torch.bfloat16)
+    model = Model(cfg, device=card)
+    with pytest.raises(NotImplementedError, match="no backward pass"):
+        loss_and_grads(model, model.init(0), _lm_batch(128, 2))
+    q = torch.randn(2, 4, 64, device=card, requires_grad=True)
+    k = torch.randn(2, 2, 128, 64, device=card)
+    with pytest.raises(NotImplementedError):
+        DA.decode_attention(q, k, k, torch.full((2,), 9, dtype=torch.int32,
+                                                device=card))
+    before = FL.launches
+    with torch.no_grad():
+        loss, _ = model.loss(model.init(0), {
+            k_: torch.as_tensor(v, device=card)
+            for k_, v in _lm_batch(128, 2).items()})
+    assert FL.launches - before == cfg.n_layers
+    assert bool(torch.isfinite(loss))
