@@ -209,6 +209,24 @@ Phases, in order; any failure exits non-zero:
    checkpoint's bytes and save and restore ms, the step's bound; one
    profiled step (device ms, busy share, top kernels).  Its lines are
    tagged ``[train]``.
+15. the MoE family and the configs past qwen3, after phase 14 (its
+   state freed): (a) ``olmoe-1b-7b`` at full width from the seed (the
+   bf16 copy only, each stacked layer weight at its own contraction's
+   fan-in), served B 8 x 2048 + 32 greedy tokens through
+   ``serve_llm.generate`` with the kernels' counts reset before and read
+   after (flash 16, decode 512), prefill ms, decode tokens/s, peak
+   bytes, slots dropped per layer; a timed and a profiled prefill of
+   token ids drawn over the vocab (the serving prompts are mostly
+   padding); flash at its layer-0 shape and decode at group 1 against
+   their plain versions; the MoE gate on two batches of such token ids
+   (:func:`moe_gate`: layer 0 against :func:`moe_reference`, the logits
+   and route sets of the kernel path against flash's plain version, each
+   part against planted faults); (b) ``decode_attention``
+   against its plain version at groups 9 (D 128) and 10 (D 256), with
+   planted faults; (c) ``starcoder2-7b`` and ``pixtral-12b`` (with its
+   seeded 256-row prefix) at full width with 4 layers, B 8 x 2048 and 4
+   decode steps, the prefill logits against the blockwise path's within
+   the bf16 budget, flash at its shape.  Its lines are tagged ``[moe]``.
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1150,9 +1168,10 @@ def flash_record(torch, F, FL, q, k, v, causal: bool, label: str,
         del tail
     del want
     pairs = s * (s + 1) // 2 if causal else s * s      # unmasked (q, k)
+    # the peak of the inputs' type, whichever route the kernel takes
     bnd, by = attn_bound(nbytes([q, k, v, got]), 4.0 * d * b * h * pairs,
-                         H100_BF16_OPS_PER_S if kernel == "mma"
-                         else H100_F32_OPS_PER_S)
+                         H100_F32_OPS_PER_S if q.dtype == torch.float32
+                         else H100_BF16_OPS_PER_S)
     rec = dict(
         name=label, route="cuda", source=FLASH_SOURCES[kernel],
         replaces="src/repro/kernels/flash_attention/kernel.py:73",
@@ -1217,7 +1236,8 @@ def decode_reset_call(torch, CB, DA, q, k, v, lengths):
     return call
 
 
-def decode_record(torch, F, CB, DA, q, k, v, lengths, label: str) -> dict:
+def decode_record(torch, F, CB, DA, q, k, v, lengths, label: str,
+                  faults: bool = True) -> dict:
     b, h, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     got, sched = DA.decode_attention_launch(q, k, v, lengths)
@@ -1234,7 +1254,7 @@ def decode_record(torch, F, CB, DA, q, k, v, lengths, label: str) -> dict:
     check(torch.equal(got, again), f"{label}: two calls on the same inputs "
           f"differ (the fold must run in item order)")
     del again
-    planted_faults(torch, want, {
+    planted_faults(torch, want, {} if not faults else {
         "output x 0.9": got * 0.9,
         "softmax scale x 0.9": DA.decode_attention(
             q, k, v, lengths, scale=0.9 * d ** -0.5),
@@ -1797,6 +1817,572 @@ def train_phase(torch, seed: int) -> dict:
         f"{out['checkpoint']['restore_ms']:.0f} ms; phase 14 took "
         f"{out['phase_s']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the MoE family and the configs past qwen3 (olmoe-1b-7b at full
+# width; decode beyond 8 heads per KV head; starcoder2-7b and pixtral-12b
+# at full width with 4 layers)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+#: (b) decode_attention beyond 8 query heads per KV head, at the serving
+#: cache of B 8 x (2048 + 32): starcoder2-7b's 36 / 4 heads at D 128 and
+#: recurrentgemma-2b's 10 / 1 at D 256 (its config is not yet ported)
+LARGE_GROUPS = {"starcoder2-7b": dict(hkv=4, group=9, d=128),
+                "recurrentgemma-2b": dict(hkv=1, group=10, d=256)}
+#: (c) dense configs served at full width, depth cut to 4 layers (all of
+#: them would not leave room beside the phase's other work: pixtral's 40
+#: layers are 49 GB of f32 weights), B 8 x 2048 (+ pixtral's 256-row
+#: prefix) and 4 decode steps
+DEPTH_CUT, DEPTH_GEN = {"starcoder2-7b": 4, "pixtral-12b": 4}, 4
+#: the MoE gate, part 2: per token, the kernel path's logits against the
+#: plain path's (the same model with flash's plain version) within four
+#: bf16 roundings of the row's largest logit (|d| <= 4 x 2^-7 max|want|)
+#: at the tokens whose routes agree in every layer; part 3: the share of
+#: (token, layer) route sets that differ between the two paths.  On the
+#: H100 with the gate's two batches of token ids (PERF.md section 6):
+#: the agreeing tokens' logits differ by 2.38 / 2.41 roundings (the
+#: attention's one-rounding differences, grown over 16 layers), the
+#: planted faults by 9.25 and more; route sets differ at 12.5 / 12.1 %
+#: of (token, layer), the planted faults at 27.0 % and more
+ROUTE_ROW_ROUNDINGS = 4.0
+ROUTE_FLIP_LIMIT = 0.18
+#: the gate's prompts: B 8 x 2048 token ids drawn uniformly over the
+#: vocab, one batch from each of these offsets of the seed
+GATE_SEEDS = (101, 102)
+
+
+def random_prompts(torch, vocab: int, seed: int):
+    """[SERVE_BATCH, SERVE_PROMPT] token ids drawn uniformly over the
+    vocab from ``seed``, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, vocab, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                         device="cuda")
+
+
+def moe_reference(torch, p, c, x):
+    """The MoE layer's function in plain PyTorch, written apart from
+    ``layers.moe``: the f32 router softmax and top-k (the routes), each
+    slot's place in its expert by a stable sort of the slots in token
+    order (not a one-hot cumsum), slots at or past the capacity dropped,
+    each expert's products on its kept rows alone, the weighted outputs
+    added per token in f32.  Returns (out, experts [T, k], kept [T, k])."""
+    import torch.nn.functional as F
+    b, s, d = x.shape
+    t, k, e = b * s, c.top_k, c.n_experts
+    xt = x.reshape(t, d)
+    probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+    top_p, top_e = torch.topk(probs, k, dim=-1)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = math.ceil(t * k / e * c.capacity_factor)
+    cap = max(-(-cap // 128) * 128, 128)
+    flat = top_e.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    counts = torch.bincount(flat, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.empty_like(flat)
+    pos[order] = torch.arange(t * k, device=x.device) - starts[flat[order]]
+    kept = pos < cap
+    w = top_p.reshape(-1)
+    out = torch.zeros(t, d, dtype=torch.float32, device=x.device)
+    for ex in range(e):
+        slots = order[starts[ex]:starts[ex] + counts[ex]]
+        slots = slots[kept[slots]]
+        if slots.numel() == 0:
+            continue
+        tok = slots // k
+        xe = xt[tok]
+        h = xe @ p["w_in"][ex]
+        if c.act == "swiglu":
+            h = F.silu(xe @ p["w_gate"][ex]) * h
+        else:
+            h = F.gelu(h, approximate="tanh")
+        out.index_add_(0, tok, (h @ p["w_out"][ex]).float() * w[slots, None])
+    return out.reshape(b, s, d).to(x.dtype), top_e, kept.reshape(t, k)
+
+
+def route_codes(torch, routes: list, n_experts: int):
+    """[layers, T, k] of each (token, layer)'s route set: its experts,
+    a dropped slot's expert offset by E, sorted along k."""
+    return torch.stack([torch.where(r["kept"], r["experts"],
+                                    r["experts"] + n_experts)
+                        .sort(-1).values for r in routes])
+
+
+def row_excess(torch, got, want, rows):
+    """The largest |got - want| in bf16 roundings of its row's largest
+    logit (2^-7 max|want|) over the ``rows`` [B, S] of two [B, S, V]
+    logit tensors, and the same over all rows."""
+    worst_in, worst_all = 0.0, 0.0
+    for g, w, r in zip(got, want, rows):
+        w = w.float()
+        lim = 2.0 ** -7 * w.abs().amax(-1, keepdim=True)
+        ratio = ((g.float() - w).abs() / lim).amax(-1)
+        check(bool(torch.isfinite(g).all()), "non-finite logits")
+        worst_all = max(worst_all, float(ratio.max()))
+        if bool(r.any()):
+            worst_in = max(worst_in, float(ratio[r].max()))
+    return worst_in, worst_all
+
+
+def keeping_dropped(L, layer: int, n_layers: int):
+    """A planted fault: ``layers.moe`` whose dispatch, at layer ``layer``
+    of each pass over ``n_layers``, ignores the capacity (every slot is
+    computed and added) while its routes, as recorded, are the rule's
+    (the slots at or past the capacity marked dropped)."""
+    real = L.moe
+    calls = [0]
+
+    def moe(p, c, x, sc):
+        at = calls[0] % n_layers == layer
+        calls[0] += 1
+        out = real(p, c, x, sc)              # records the rule's routes
+        if not at:
+            return out
+        cap = L.moe_capacity
+        L.moe_capacity = lambda c_, t: -(-t // 128) * 128
+        try:
+            with L.recording_routes():       # this call's are not kept
+                y = real(p, c, x, sc)[0]
+        finally:
+            L.moe_capacity = cap
+        return y, out[1]
+    return moe
+
+
+#: contraction size of each stacked layer weight (the per-matrix fan-in)
+FAN_IN = {"wq": "d", "wk": "d", "wv": "d", "wo": "hd", "w_in": "d",
+          "w_gate": "d", "w_out": "f", "router": "d"}
+
+
+def per_matrix_scale(torch, cfg, lp) -> dict:
+    """``lp`` with each stacked layer weight rescaled, in place, from the
+    init's fan-in (every axis but the last: the layer and expert axes
+    too) to its own contraction's, 1 / sqrt(d) for ``wq``: a layer's
+    attention and experts then add to the residual stream what a
+    trained model's do, not ~1e-4 of it.  Returns the factors."""
+    from repro_torch.models import param as PM
+    sizes = {"d": cfg.d_model, "hd": cfg.n_heads * cfg.head_dim_,
+             "f": cfg.d_ff}
+    factors = {}
+    for path, leaf in PM.tree_items(lp["layers"]):
+        name = path[-1]
+        if name in FAN_IN:
+            init_fan = math.prod(leaf.shape[:-1])
+            factors[name] = math.sqrt(init_fan / sizes[FAN_IN[name]])
+            leaf.mul_(factors[name])
+    return factors
+
+
+def moe_gate(torch, L, FL, Model, cfg, lp, prompt_seed: int) -> tuple:
+    """The MoE gate in three parts, each held against planted faults of
+    two kinds -- an expert's wrong weight (the ``w_out`` of a layer's two
+    most-loaded experts swapped) and dropped slots kept
+    (:func:`keeping_dropped`) -- placed where the part can see them:
+    (1) layer 0's MoE on the kernel path's own input against
+    :func:`moe_reference`: bit-equal routes, the output within one bf16
+    rounding (faults at layer 0); (2) the kernel path's forward logits
+    against the plain path's (the same forward with
+    ``flash_attention_plain`` in the kernel's place) at the tokens whose
+    route sets agree in every layer, within :data:`ROUTE_ROW_ROUNDINGS`
+    (faults at the last layer, whose output moves no route); (3) the
+    share of (token, layer) route sets that differ between the two
+    paths, under :data:`ROUTE_FLIP_LIMIT` (faults at layer 0).  The
+    prompts are :func:`random_prompts` of ``prompt_seed``.  Returns the
+    numbers and the checks, which the phase makes at its end."""
+    from repro_torch.distributed.shardings import null_ctx
+    out, checks = {"prompt_seed": prompt_seed}, []
+    tokens = random_prompts(torch, cfg.vocab, prompt_seed)
+    batch = {"tokens": tokens}
+    b, s = tokens.shape
+    e, n = cfg.n_experts, cfg.n_layers
+    t0 = time.perf_counter()
+    model = Model(cfg)
+
+    def run(params=None, keep_at=None, plain=False):
+        orig = L.moe, FL.flash_attention
+        if keep_at is not None:
+            L.moe = keeping_dropped(L, keep_at, n)
+        if plain:
+            FL.flash_attention = FL.flash_attention_plain
+        try:
+            with L.recording_routes() as routes:
+                logits, _ = model.forward(params or lp, batch)
+        finally:
+            L.moe, FL.flash_attention = orig
+        return logits, route_codes(torch, routes, e)
+
+    with CaptureFirst(L, "moe") as cap:
+        logits_k, codes_k = run()
+    (p0, c0, x0, _), _ = cap.calls[0]
+    logits_p, codes_p = run(plain=True)
+    # each layer's two experts with the most kept slots
+    busiest = [torch.bincount(c[c < e], minlength=e).topk(2).indices
+               .tolist() for c in codes_k]
+    out["busiest_experts"] = busiest
+
+    def swapped_w_out(w_out, pair):
+        order = list(range(e))
+        order[pair[0]], order[pair[1]] = pair[1], pair[0]
+        return w_out[..., order, :, :]
+
+    # (1) layer 0's MoE on identical inputs
+    sc = null_ctx()
+    with L.recording_routes() as r0:
+        got = L.moe(p0, c0, x0, sc)[0]
+    want, experts, kept = moe_reference(torch, p0, c0, x0)
+    out["layer0"] = {
+        "routes_bit_equal": bool(torch.equal(r0[0]["experts"], experts)
+                                 and torch.equal(r0[0]["kept"], kept)),
+        "dropped_slots": int((~kept).sum()), "slots": int(kept.numel()),
+        "moe_rms_over_input_rms": float(want.float().pow(2).mean().sqrt()
+                                        / x0.float().pow(2).mean().sqrt())}
+    err, excess = rounding_excess(torch, got, want, "layer-0 moe")
+    out["layer0"].update(max_abs_err=err, err_over_limit=excess)
+    checks.append((out["layer0"]["routes_bit_equal"],
+                   "layer-0 moe: routes differ from the plain reference"))
+    checks.append((excess <= 1.0, f"layer-0 moe: {excess:.3g} times the "
+                   f"one-rounding limit"))
+    with L.recording_routes():
+        faults1 = {
+            "busiest experts swapped": L.moe(
+                dict(p0, w_out=swapped_w_out(p0["w_out"], busiest[0])),
+                c0, x0, sc)[0],
+            "dropped slots kept": keeping_dropped(L, 0, 1)(p0, c0, x0,
+                                                           sc)[0]}
+    out["layer0"]["faults"] = {
+        k: rounding_excess(torch, v, want, f"layer-0 moe {k}")[1]
+        for k, v in faults1.items()}
+    for k, v in out["layer0"]["faults"].items():
+        checks.append((v > 1.0, f"layer-0 moe: the gate passes the planted "
+                       f"fault '{k}' ({v:.3g})"))
+    del got, want, faults1, cap, x0
+
+    # (2) and (3): the kernel path against the plain path
+    def compare(logits, codes, what):
+        differ = (codes != codes_p).any(-1)                 # [layers, T]
+        agree = ~differ.any(0).reshape(b, s)
+        # a token reads its earlier tokens through attention: where the
+        # routes of every earlier token of its sequence agree too (clean),
+        # it computed nothing the other path did not (reported only)
+        clean = torch.cumsum((~agree).int(), dim=1) == 0
+        experts_differ = (codes % e != codes_p % e).any(-1)
+        in_agree, everywhere = row_excess(torch, logits, logits_p, agree)
+        in_clean, _ = row_excess(torch, logits, logits_p, clean)
+        return {"route_sets_differ": float(differ.float().mean()),
+                "expert_sets_differ": float(experts_differ.float().mean()),
+                "tokens_agreeing": int(agree.sum()),
+                "tokens_clean": int(clean.sum()),
+                "differ_per_layer": differ.sum(1).tolist(),
+                "clean_err_roundings": in_clean,
+                "agreeing_err_roundings": in_agree,
+                "all_err_roundings": everywhere, "what": what}
+
+    out["paths"] = compare(logits_k, codes_k, "flash vs its plain version")
+    out["dropped_per_layer"] = [int((c >= e).sum()) for c in codes_k]
+    del logits_k
+    checks.append((out["paths"]["tokens_agreeing"] > 0
+                   and out["paths"]["agreeing_err_roundings"]
+                   <= ROUTE_ROW_ROUNDINGS,
+                   f"moe logits at the {out['paths']['tokens_agreeing']} "
+                   f"tokens whose routes agree: "
+                   f"{out['paths']['agreeing_err_roundings']:.3g} roundings "
+                   f"of the row's largest logit > {ROUTE_ROW_ROUNDINGS}"))
+    checks.append((out["paths"]["route_sets_differ"] <= ROUTE_FLIP_LIMIT,
+                   f"moe route sets differ at "
+                   f"{out['paths']['route_sets_differ']:.4g} of (token, "
+                   f"layer) > {ROUTE_FLIP_LIMIT}"))
+
+    def swapped_at(layer):
+        layers = lp["layers"]["moe"]
+        w = layers["w_out"].clone()
+        w[layer] = swapped_w_out(w[layer], busiest[layer])
+        return dict(lp, layers=dict(lp["layers"], moe=dict(layers,
+                                                          w_out=w)))
+
+    out["faults"] = {}
+    for part, layer, metric in ((2, n - 1, "agreeing_err_roundings"),
+                                (3, 0, "route_sets_differ")):
+        limit = ROUTE_ROW_ROUNDINGS if part == 2 else ROUTE_FLIP_LIMIT
+        for kind in ("busiest experts swapped", "dropped slots kept"):
+            if kind == "dropped slots kept":
+                res = compare(*run(keep_at=layer), kind)
+            else:
+                res = compare(*run(swapped_at(layer)), kind)
+            out["faults"][f"part {part}: {kind} at layer {layer}"] = res
+            checks.append((res[metric] > limit, f"moe part {part} passes "
+                           f"the planted fault '{kind}' at layer {layer} "
+                           f"({metric} {res[metric]:.4g})"))
+    del logits_p
+    out["gate_s"] = time.perf_counter() - t0
+    log(f"[moe] gate {json.dumps(out)}")
+    return out, checks
+
+
+def reset_attention_counts(FL, DA) -> None:
+    FL.launches = FL.launches_mma = FL.launches_cuda_cores = 0
+    DA.launches = 0
+
+
+def attention_counts(FL, DA) -> dict:
+    return {"flash_attention_mma": FL.launches_mma,
+            "flash_attention_cuda_cores": FL.launches_cuda_cores,
+            "decode_attention": DA.launches}
+
+
+def prefill_profile(torch, L, model, lp, tokens) -> dict:
+    """A timed prefill of ``tokens`` after a warm one (wall ms, the slots
+    dropped at capacity per layer), then a profiled one (device events
+    only): device ms, busy share of its wall, the kernels that take most
+    of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def once():
+        model.prefill(lp, {"tokens": tokens}, cache_len=tokens.shape[1])
+        torch.cuda.synchronize()
+
+    once()
+    with L.recording_routes() as routes:
+        t0 = time.perf_counter()
+        once()
+        timed = (time.perf_counter() - t0) * 1e3
+    dropped = [int((~r["kept"]).sum()) for r in routes]
+    slots = int(routes[0]["kept"].numel())
+    del routes
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        once()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if device_work(e)]
+    dev = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    return {"prefill_ms": timed, "dropped_per_layer": dropped,
+            "slots_per_layer": slots,
+            "dropped_share": sum(dropped) / (slots * len(dropped)),
+            "profiled_wall_ms": wall, "device_ms": dev,
+            "device_busy_share": dev / wall if wall else None,
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                    for e in top]}
+
+
+def olmoe_serving(torch, F, CB, FL, DA, L, PM, Model, serve_llm, seed):
+    """Phase 15 (a): olmoe-1b-7b at full width from the seed, served B 8 x
+    2048 + 32 through ``serve_llm.generate`` (flash in prefill, decode at
+    group 1), the kernels' counts reset before and read after; the
+    kernel records at its shapes; the MoE gate."""
+    from repro_torch.configs import get
+    cfg = dataclasses.replace(get(MOE_ARCH), attn_impl="pallas")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    lp = PM.cast_compute(model.init(seed), cfg.compute_dtype)
+    scale = per_matrix_scale(torch, cfg, lp)
+    torch.cuda.synchronize()
+    out = {"arch": MOE_ARCH, "params": model.n_params(),
+           "init_s": time.perf_counter() - t0,
+           "per_matrix_scale": scale,
+           "resident_gb": torch.cuda.memory_allocated() / 1e9}
+    kw = dict(reduced=False, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+              params=lp, attn_impl="pallas")
+    serve_llm.generate(MOE_ARCH, gen=2, **kw)                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_counts(FL, DA)
+    with L.recording_routes() as routes, \
+            CaptureFirst(FL, "flash_attention") as fcap, \
+            CaptureFirst(DA, "decode_attention") as dcap:
+        res = serve_llm.generate(MOE_ARCH, gen=SERVE_GEN,
+                                 return_logits=True, **kw)
+    torch.cuda.synchronize()
+    out["launches"] = attention_counts(FL, DA)
+    st = res["stats"]
+    out.update(prefill_ms=st.prefill_s * 1e3, decode_ms=st.decode_s * 1e3,
+               decode_tokens_per_s=st.tokens_per_s,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    n = cfg.n_layers
+    check(len(routes) == n * (1 + SERVE_GEN), f"{len(routes)} moe calls")
+    out["prefill_dropped_per_layer"] = [int((~r["kept"]).sum())
+                                        for r in routes[:n]]
+    out["prefill_slots_per_layer"] = int(routes[0]["kept"].numel())
+    out["decode_dropped"] = sum(int((~r["kept"]).sum())
+                                for r in routes[n:])
+    del routes
+    v = cfg.padded_vocab
+    check(tuple(res["prefill_logits"].shape) == (SERVE_BATCH, v)
+          and tuple(res["decode_logits"].shape) == (SERVE_BATCH, SERVE_GEN,
+                                                    v)
+          and bool(torch.isfinite(res["decode_logits"]).all())
+          and bool(torch.isfinite(res["prefill_logits"]).all()),
+          "olmoe serving: logits of the wrong shape or not finite")
+    check(out["launches"] == {"flash_attention_mma": n,
+                              "flash_attention_cuda_cores": 0,
+                              "decode_attention": n * SERVE_GEN},
+          f"olmoe serving launched {out['launches']}")
+    del res
+    # the serving prompts are ~98 % padding; a prefill of the gate's
+    # first prompts (token ids over the whole vocab) times the MoE
+    # dispatch at the drops real text gives
+    out["prefill_profile_random_prompts"] = prefill_profile(
+        torch, L, model, lp, random_prompts(torch, cfg.vocab,
+                                            seed + GATE_SEEDS[0]))
+    log(f"[moe] serving {json.dumps(out)}")
+
+    records = []
+    q, k, v_ = fcap.calls[0][0][:3]
+    check(tuple(q.shape) == (SERVE_BATCH, cfg.n_heads, SERVE_PROMPT,
+                             cfg.head_dim_), f"olmoe flash {tuple(q.shape)}")
+    # no planted faults at olmoe's inputs: its random-init attention is
+    # near uniform, so a softmax scale x 0.9 stays within one rounding
+    # (error/limit 0.81 on the H100); phase 6 plants them
+    records.append(flash_record(torch, F, FL, q, k, v_, True,
+                                "flash_attention_mma[olmoe-1b-7b]"))
+    del q, k, v_, fcap
+    # layer 0's first decode step: the serving cache, group 1
+    q, k, v_, lengths = dcap.calls[0][0]
+    check(tuple(k.shape) == (SERVE_BATCH, cfg.n_kv, SERVE_PROMPT + SERVE_GEN,
+                             cfg.head_dim_)
+          and bool((lengths == SERVE_PROMPT + 1).all()),
+          f"olmoe cache {tuple(k.shape)}, lengths {lengths.tolist()}")
+    records.append(decode_record(torch, F, CB, DA, q, k, v_, lengths,
+                                 "decode_attention[olmoe-1b-7b]",
+                                 faults=False))
+    del q, k, v_, lengths, dcap
+    torch.cuda.empty_cache()
+    checks = []
+    for off in GATE_SEEDS:
+        _, c = moe_gate(torch, L, FL, Model, cfg, lp, seed + off)
+        checks += c
+    del lp
+    torch.cuda.empty_cache()
+    return out, records, checks
+
+
+def large_group_record(torch, F, CB, DA, c: dict, seed: int, label: str):
+    """decode_record at the serving cache (B 8 x S 2080, every length
+    2049) of a head layout ``c`` (hkv, group, d), inputs from the seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed + c["group"])
+    s = SERVE_PROMPT + SERVE_GEN
+    q = torch.randn(SERVE_BATCH, c["hkv"] * c["group"], c["d"],
+                    generator=g, device="cuda").bfloat16()
+    k = torch.randn(SERVE_BATCH, c["hkv"], s, c["d"], generator=g,
+                    device="cuda").bfloat16()
+    v = torch.randn(k.shape, generator=g, device="cuda").bfloat16()
+    lengths = torch.full((SERVE_BATCH,), SERVE_PROMPT + 1,
+                         dtype=torch.int32, device="cuda")
+    return decode_record(torch, F, CB, DA, q, k, v, lengths, label)
+
+
+def depth_cut_serving(torch, F, FL, DA, PM, Model, serve_llm, arch: str,
+                      seed: int):
+    """Phase 15 (c): ``arch`` at full width with :data:`DEPTH_CUT` layers,
+    one prefill of B 8 x 2048 (and a vision config's seeded prefix) and
+    :data:`DEPTH_GEN` decode steps through ``serve_llm.generate``, the
+    kernels' counts reset before and read after; the prefill logits
+    against the blockwise path's within the bf16 budget (the blockwise
+    path against an f32 one, as phase 7)."""
+    from repro_torch.configs import get
+    n = DEPTH_CUT[arch]
+    cfg = dataclasses.replace(get(arch), n_layers=n, attn_impl="pallas")
+    model = Model(cfg)
+    params = model.init(seed)
+    lp = PM.cast_compute(params, cfg.compute_dtype)
+    kw = dict(reduced=False, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+              params=lp, attn_impl="pallas", n_layers=n, seed=seed)
+    with CaptureFirst(FL, "flash_attention") as fcap:
+        serve_llm.generate(arch, gen=1, **kw)                # warm-up
+    reset_attention_counts(FL, DA)
+    res = serve_llm.generate(arch, gen=DEPTH_GEN, return_logits=True, **kw)
+    torch.cuda.synchronize()
+    st = res["stats"]
+    out = {"arch": arch, "layers": n, "of_layers": get(arch).n_layers,
+           "params": model.n_params(),
+           "launches": attention_counts(FL, DA),
+           "prefill_ms": st.prefill_s * 1e3, "decode_ms": st.decode_s * 1e3,
+           "decode_tokens_per_s": st.tokens_per_s}
+    route = FL.route(cfg.compute_dtype, cfg.head_dim_)
+    want = {"flash_attention_mma": n if route == "mma" else 0,
+            "flash_attention_cuda_cores": n if route != "mma" else 0,
+            "decode_attention": n * DEPTH_GEN}
+    check(out["launches"] == want, f"{arch}: launched {out['launches']}, "
+          f"not {want}")
+    prompts = torch.as_tensor(serve_llm.synthetic_prompts(
+        SERVE_BATCH, SERVE_PROMPT, cfg.vocab), device="cuda")
+    batch = {"tokens": prompts}
+    base = SERVE_PROMPT
+    if cfg.frontend == "vision":
+        batch["prefix"] = serve_llm.vision_prefix(cfg, SERVE_BATCH, seed + 1,
+                                                  "cuda")
+        base += cfg.frontend_len
+    cache_len = base + DEPTH_GEN
+    ref, _ = Model(dataclasses.replace(cfg, attn_impl="blockwise")).prefill(
+        lp, batch, cache_len=cache_len)
+    del lp
+    exact, _ = Model(dataclasses.replace(
+        cfg, attn_impl="blockwise", compute_dtype=torch.float32)).prefill(
+        params, batch, cache_len=cache_len)
+    noise = logit_err(torch, ref, exact, f"{arch} blockwise bf16 vs f32")
+    out["blockwise_vs_f32"] = noise
+    out["prefill_vs_blockwise"] = logit_err(
+        torch, res["prefill_logits"], ref, f"{arch} prefill pallas vs "
+        f"blockwise", noise)
+    check(bool(torch.isfinite(res["decode_logits"]).all())
+          and res["completions"].shape == (SERVE_BATCH, DEPTH_GEN),
+          f"{arch}: decode logits not finite or completions misshapen")
+    del params, ref, exact, res
+    q, k, v = fcap.calls[0][0][:3]
+    label = f"flash_attention_{route}[{arch}]"
+    record = flash_record(torch, F, FL, q, k, v, True, label)
+    del q, k, v, fcap
+    torch.cuda.empty_cache()
+    log(f"[moe] {arch} {json.dumps(out)}")
+    return out, record
+
+
+def moe_phase(torch, seed: int) -> list:
+    """Phase 15: the MoE family (olmoe-1b-7b served at full width, its
+    gate), decode_attention beyond 8 heads per KV head, and starcoder2-7b
+    and pixtral-12b served at full width with 4 layers; returns the kernel
+    records, with the kernels' launches over the phase's main-path runs.
+    The gate's checks are made at the end, after every number is logged."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import cuda_build as CB
+    from repro_torch.kernels.decode_attention import kernel as DA
+    from repro_torch.kernels.flash_attention import kernel as FL
+    from repro_torch.launch import serve_llm
+    from repro_torch.models import layers as L
+    from repro_torch.models import param as PM
+    from repro_torch.models.modeling import Model
+
+    t0 = time.perf_counter()
+    log(f"[moe] decode_attention resources beyond 8 heads per KV head: "
+        + json.dumps({f"bf16 G{c['group']} D{c['d']}": DA.resources(
+            torch.bfloat16, SERVE_BATCH, c["group"], c["d"])
+            for c in LARGE_GROUPS.values()}))
+    olmoe, records, checks = olmoe_serving(torch, F, CB, FL, DA, L, PM,
+                                           Model, serve_llm, seed)
+    launches = {k: olmoe["launches"][k] for k in olmoe["launches"]}
+    for arch, c in LARGE_GROUPS.items():
+        records.append(large_group_record(
+            torch, F, CB, DA, c, seed,
+            f"decode_attention[group {c['group']}, {arch}]"))
+    for arch in DEPTH_CUT:
+        out, rec = depth_cut_serving(torch, F, FL, DA, PM, Model, serve_llm,
+                                     arch, seed)
+        records.append(rec)
+        for k, n in out["launches"].items():
+            launches[k] += n
+    launches["flash_attention"] = (launches["flash_attention_mma"]
+                                   + launches["flash_attention_cuda_cores"])
+    for r in records:
+        r["launches"] = launches[r["name"].split("[")[0]]
+        check(r["launches"] > 0, f"{r['name']}: no launch in phase 15")
+    log(f"[moe] phase 15 launches {json.dumps(launches)}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase "
+        f"15 took {time.perf_counter() - t0:.1f} s")
+    for ok, what in checks:
+        check(ok, what)
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -3473,8 +4059,10 @@ def run(sf: float, seed: int) -> int:
         r["launches"] = lm_launches[r["name"].split("[")[0]]
     torch.cuda.empty_cache()
     train_phase(torch, seed)
+    torch.cuda.empty_cache()
+    moe_records = moe_phase(torch, seed)
     log(f"[summary] total {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": records + lm_records}))
+    print(json.dumps({"kernels": records + lm_records + moe_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,8 @@
-"""Architecture configs of the LM framework (``qwen3-0.6b`` is ported)."""
-from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig
+"""Architecture configs of the LM framework (the dense and moe ones are
+ported: :data:`PORTED`)."""
+from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeConfig,
+                                      shape_applicable)
 from repro_torch.configs.registry import ARCHS, PORTED, get
 
-__all__ = ["ARCHS", "PORTED", "SHAPES", "ArchConfig", "ShapeConfig", "get"]
+__all__ = ["ARCHS", "PORTED", "SHAPES", "ArchConfig", "ShapeConfig", "get",
+           "shape_applicable"]

@@ -1,13 +1,13 @@
 """ArchConfig: declarative architecture description + input shapes.
 
 The fields are those of the JAX package's config, with torch dtypes.  The
-port runs the ``dense`` family only; a config of another family can be
-described here, and the model code refuses it by name.
+port runs the ``dense`` and ``moe`` families; a config of another family
+can be described here, and the model code refuses it by name.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -106,3 +106,12 @@ SHAPES: Dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
 }
 
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Cell applicability per the assignment rules."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("skipped: pure full-attention architecture; O(L^2) "
+                       "attention with a materialised 500K KV cache is "
+                       "architecture-infeasible (DESIGN.md section 6)")
+    return True, ""

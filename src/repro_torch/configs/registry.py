@@ -17,7 +17,10 @@ ARCHS: List[str] = [
 ]
 
 #: Archs whose config and family the port runs.
-PORTED: List[str] = ["qwen3_0_6b"]
+PORTED: List[str] = [
+    "qwen3_0_6b", "starcoder2_7b", "granite_8b", "qwen3_14b", "pixtral_12b",
+    "dbrx_132b", "olmoe_1b_7b",
+]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 _ALIASES.update({

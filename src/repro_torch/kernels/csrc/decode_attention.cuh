@@ -50,7 +50,8 @@
 //    stream does not drain between them.
 //    From shared memory, per tile: scores for the G query heads over the
 //    tile's keys, L lanes across a key row (16-byte loads) and a shuffle
-//    reduction; the online-softmax update per head (one warp per head);
+//    reduction; the online-softmax update per head (warp w owns heads w,
+//    w + 8, ...: any group up to DA_MAX_GROUP);
 //    P.V, where each thread owns (head, 16-byte slice of D) and a
 //    stride of keys, reading V rows from shared memory with p broadcast
 //    from shared memory.  The queries move from the ring to registers as
@@ -95,6 +96,7 @@
 #define DA_TILE_BYTES 8192
 #define DA_ITEMS_PER_BLOCK 8
 #define DA_MAX_BATCH 8192
+#define DA_MAX_GROUP 16
 
 template <typename T> __device__ __forceinline__ T da_from_f(float x);
 template <> __device__ __forceinline__ float da_from_f<float>(float x) {
@@ -190,8 +192,10 @@ __device__ __forceinline__ void da_bulk_load(void* dst, const void* src,
 
 struct DaLayout {
   int ring, misc, sbuf, red, prefix, total;  // byte offsets, total bytes
+  int ml, flag, wsum, fold;                  // byte offsets inside misc
   int slot;                                  // bytes of one ring slot
   int kt;                                    // keys per tile
+  int fs;                                    // the fold's parts x heads
 };
 
 // The layout is computed on the host (it sizes the launch) and passed to
@@ -202,16 +206,23 @@ __host__ __device__ inline DaLayout da_layout(int B, int group, int d,
   DaLayout L;
   L.kt = DA_TILE_BYTES / (d * elem);
   const int nvec = d * elem / 16, epv = 16 / elem;
-  const int units = group * nvec;
+  const int units = group * nvec, gd = group * d;
   const int ks = units >= DA_THREADS ? 1 : DA_THREADS / units;
   // the key strides' sums (then the fold's parts): one f32 per unit slot
   const int red_floats = (units >= DA_THREADS ? units : ks * units) * epv;
   // a slot: K tile, V tile, and the queries when the tile is a segment's
   // first
   L.slot = 2 * DA_TILE_BYTES + da_round16(group * d * elem);
+  // the fold's parts: threads an element when a pair's G x D outputs are
+  // fewer than the threads
+  L.fs = (gd >= DA_THREADS ? 1 : DA_THREADS / gd) * group;
   L.ring = 128;                           // after the mbarriers, 128-aligned
-  L.misc = L.ring + DA_STAGES * L.slot;   // alpha, m/l, flag, sums, fold
-  L.sbuf = L.misc + 384;
+  L.misc = L.ring + DA_STAGES * L.slot;   // alpha [group]
+  L.ml = L.misc + da_round16(group * 4);  // (m, l) [group][2]
+  L.flag = L.ml + da_round16(2 * group * 4);
+  L.wsum = L.flag + 16;                   // [DA_WARPS] long long
+  L.fold = L.wsum + DA_WARPS * 8;         // the parts' max [fs], sums [fs]
+  L.sbuf = L.fold + da_round16(2 * L.fs * 4);
   L.red = L.sbuf + da_round16(2 * group * L.kt * 4);   // two score buffers
   L.prefix = L.red + da_round16(red_floats * 4);
   L.total = L.prefix + da_round16((2 * B + 1) * 4);   // prefix, lengths
@@ -273,9 +284,10 @@ __device__ __forceinline__ DaItem da_item(int i, const int* P,
 
 // ---- the kernel --------------------------------------------------------
 
-// three blocks per SM (85 registers) where the query registers allow it
+// three blocks per SM (85 registers) where the query registers allow it;
+// above 8 heads the queries alone take 128 registers a thread: one block
 template <typename T, int G, int DMAX>
-__global__ void __launch_bounds__(DA_THREADS, G <= 2 ? 3 : 2)
+__global__ void __launch_bounds__(DA_THREADS, G <= 2 ? 3 : (G <= 8 ? 2 : 1))
 flare_decode_kernel(const DaArgs a) {
   constexpr int EPV = 16 / sizeof(T);                // elements per 16 bytes
   constexpr int NVM = DMAX * sizeof(T) / 16;         // 16-byte vectors a row
@@ -284,16 +296,17 @@ flare_decode_kernel(const DaArgs a) {
   constexpr int DMIN = DMAX == 64 ? 16 : DMAX / 2 + 8;
   constexpr int KT_MAX = DA_TILE_BYTES / (DMIN * (int)sizeof(T));
   constexpr int SPL = (KT_MAX + 31) / 32;            // softmax keys a lane
+  constexpr int HPW = (G + DA_WARPS - 1) / DA_WARPS;  // softmax heads a warp
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   unsigned char* ring = smem + a.lay.ring;
-  float* alpha_s = reinterpret_cast<float*>(smem + a.lay.misc);   // [8]
-  float* ml_s = alpha_s + 8;                                        // [8][2]
-  int* flag_s = reinterpret_cast<int*>(ml_s + 16);                  // [1]
-  long long* wsum = reinterpret_cast<long long*>(smem + a.lay.misc + 128);
-  // the fold's per-part max [16] and denominator [16]
-  float* fold_s = reinterpret_cast<float*>(smem + a.lay.misc + 192);
+  float* alpha_s = reinterpret_cast<float*>(smem + a.lay.misc);  // [group]
+  float* ml_s = reinterpret_cast<float*>(smem + a.lay.ml);       // [group][2]
+  int* flag_s = reinterpret_cast<int*>(smem + a.lay.flag);       // [1]
+  long long* wsum = reinterpret_cast<long long*>(smem + a.lay.wsum);
+  // the fold's per-part max [fs] and denominator [fs]
+  float* fold_s = reinterpret_cast<float*>(smem + a.lay.fold);
   float* sbuf = reinterpret_cast<float*>(smem + a.lay.sbuf);
   float* red = reinterpret_cast<float*>(smem + a.lay.red);
   int* P = reinterpret_cast<int*>(smem + a.lay.prefix);
@@ -425,7 +438,7 @@ flare_decode_kernel(const DaArgs a) {
 
   float qr[G][VPL][EPV];
   float acc[UPT][EPV];
-  float m_run = -INFINITY, l_run = 0.f;   // the softmax warp's head
+  float m_run[HPW], l_run[HPW];           // the softmax warp's heads
   int seq = 0;
 
   // A segment is the block's items of one (sequence, kv head): its rows
@@ -439,8 +452,11 @@ flare_decode_kernel(const DaArgs a) {
       for (int x = 0; x < UPT; ++x)
 #pragma unroll
         for (int e = 0; e < EPV; ++e) acc[x][e] = 0.f;
-      m_run = -INFINITY;
-      l_run = 0.f;
+#pragma unroll
+      for (int hh = 0; hh < HPW; ++hh) {
+        m_run[hh] = -INFINITY;
+        l_run[hh] = 0.f;
+      }
     }
 
     for (int row0 = it.start; row0 < it.end; row0 += KT, ++seq) {
@@ -501,9 +517,12 @@ flare_decode_kernel(const DaArgs a) {
       __syncthreads();                                       // (a)
       if (t == 0) issue();       // the slot of the previous tile is free
 
-      // the online-softmax update: warp g owns head g
-      if (warp < group) {
-        float* sg = sb + warp * KT;
+      // the online-softmax update: warp w owns heads w, w + 8, ...
+#pragma unroll
+      for (int hh = 0; hh < HPW; ++hh) {
+        const int g = warp + hh * DA_WARPS;
+        if (g >= group) break;
+        float* sg = sb + g * KT;
         float sv[SPL];
         float mx = -INFINITY;
 #pragma unroll
@@ -513,8 +532,8 @@ flare_decode_kernel(const DaArgs a) {
           mx = fmaxf(mx, sv[r]);
         }
         mx = da_warp_max(mx);
-        const float m_new = fmaxf(m_run, mx);
-        const float alpha = expf(m_run - m_new);
+        const float m_new = fmaxf(m_run[hh], mx);
+        const float alpha = expf(m_run[hh] - m_new);
         float sum = 0.f;
 #pragma unroll
         for (int r = 0; r < SPL; ++r) {
@@ -526,9 +545,9 @@ flare_decode_kernel(const DaArgs a) {
           }
         }
         sum = da_warp_sum(sum);
-        l_run = l_run * alpha + sum;
-        m_run = m_new;
-        if (lane == 0) alpha_s[warp] = alpha;
+        l_run[hh] = l_run[hh] * alpha + sum;
+        m_run[hh] = m_new;
+        if (lane == 0) alpha_s[g] = alpha;
       }
       __syncthreads();                                       // (b)
 
@@ -569,9 +588,13 @@ flare_decode_kernel(const DaArgs a) {
         for (int e = 0; e < EPV; ++e) dst[e] = acc[x][e];
       }
     }
-    if (warp < group && lane == 0) {
-      ml_s[2 * warp] = m_run;
-      ml_s[2 * warp + 1] = l_run;
+#pragma unroll
+    for (int hh = 0; hh < HPW; ++hh) {
+      const int g = warp + hh * DA_WARPS;
+      if (g < group && lane == 0) {
+        ml_s[2 * g] = m_run[hh];
+        ml_s[2 * g + 1] = l_run[hh];
+      }
     }
     __syncthreads();                                         // (E1)
     // the blocks whose runs meet this pair: its segments, in item order;
@@ -630,7 +653,7 @@ flare_decode_kernel(const DaArgs a) {
       red[part * gd + el] = A;
       if (c0) {
         fold_s[part * group + g] = M;
-        fold_s[16 + part * group + g] = Ls;
+        fold_s[a.lay.fs + part * group + g] = Ls;
       }
     }
     __syncthreads();                                         // (E4)
@@ -642,7 +665,7 @@ flare_decode_kernel(const DaArgs a) {
       for (int q = 0; q < parts; ++q) {
         const float w = expf(fold_s[q * group + g] - M);
         A += red[q * gd + el] * w;
-        Ls += fold_s[16 + q * group + g] * w;
+        Ls += fold_s[a.lay.fs + q * group + g] * w;
       }
       og[obase + el] = da_from_f<T>(A / fmaxf(Ls, 1e-30f));
     }
@@ -669,6 +692,7 @@ static int da_by_group(int group, int d, F&& f) {
   if (group <= 2) return da_by_d<T, 2>(d, f);
   if (group <= 4) return da_by_d<T, 4>(d, f);
   if (group <= 8) return da_by_d<T, 8>(d, f);
+  if (group <= DA_MAX_GROUP) return da_by_d<T, DA_MAX_GROUP>(d, f);
   return (int)cudaErrorInvalidValue;
 }
 // f(T*, DaTag<G, DMAX>) on the kernel variant of (dtype, group, d)
@@ -681,7 +705,8 @@ static int da_dispatch(int dtype, int group, int d, F&& f) {
 
 static bool da_valid(int B, int hkv, int group, int S, int d, int dtype) {
   return B >= 1 && B <= DA_MAX_BATCH && hkv >= 1 &&
-         (long long)B * hkv <= (1 << 24) && group >= 1 && group <= 8 &&
+         (long long)B * hkv <= (1 << 24) && group >= 1 &&
+         group <= DA_MAX_GROUP &&
          S >= 1 && S <= (1 << 30) && d >= 16 && d <= 256 && d % 8 == 0 &&
          (dtype == 0 || dtype == 1);
 }

@@ -58,9 +58,13 @@ def _unit_constants() -> dict:
 _CONST = _unit_constants()
 
 #: What the CUDA kernel takes: head widths (a multiple of 8, so a key row
-#: is whole 16-byte copies), query heads per KV head, and sequences (the
+#: is whole 16-byte copies), query heads per KV head (the TPU kernel takes
+#: any; the unit instantiates up to ``MAX_GROUP``), and sequences (the
 #: schedule's prefix over the batch lives in shared memory).
-MIN_D, MAX_D, MAX_GROUP, MAX_BATCH = 16, 256, 8, _CONST["MAX_BATCH"]
+MIN_D, MAX_D = 16, 256
+MAX_GROUP, MAX_BATCH = _CONST["MAX_GROUP"], _CONST["MAX_BATCH"]
+#: Dynamic shared memory a block may opt into on sm_90 (227 KB).
+SMEM_OPTIN = 232448
 
 #: The schedule's constants, from the unit: bytes of K (and of V) in one
 #: tile, and the work items aimed for per block (the chunk is the valid
@@ -119,6 +123,29 @@ def block_runs(n_items: int, grid: int) -> List[Tuple[int, int]]:
     same count to within one, over ``min(grid, n_items)`` blocks."""
     g = min(grid, n_items)
     return [(x * n_items // g, (x + 1) * n_items // g) for x in range(g)]
+
+
+def _r16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def shared_bytes(b: int, group: int, d: int, elem_bytes: int) -> int:
+    """Dynamic shared bytes of one block: the unit's ``da_layout`` (the
+    mbarriers, a ring of ``STAGES`` slots of a K tile, a V tile and the
+    queries, the softmax and fold state, two score buffers, the key
+    strides' sums and the schedule's prefix over ``b`` sequences)."""
+    kt = keys_per_tile(d, elem_bytes)
+    nvec, epv = d * elem_bytes // 16, 16 // elem_bytes
+    units, gd, threads = group * nvec, group * d, _CONST["THREADS"]
+    ks = 1 if units >= threads else threads // units
+    red_floats = (units if units >= threads else ks * units) * epv
+    fs = (1 if gd >= threads else threads // gd) * group
+    slot = 2 * TILE_BYTES + _r16(group * d * elem_bytes)
+    misc = (_r16(group * 4) + _r16(2 * group * 4) + 16
+            + 8 * (threads // 32) + _r16(2 * fs * 4))
+    return (128 + _CONST["STAGES"] * slot + misc
+            + _r16(2 * group * kt * 4) + _r16(red_floats * 4)
+            + _r16((2 * b + 1) * 4))
 
 
 def scratch_words(b: int, hkv: int, group: int, d: int, grid: int) -> int:
@@ -184,6 +211,10 @@ def _check_card(q, k, v, lengths) -> None:
         raise KernelBudgetError(f"decode_attention: {b} sequences > "
                                 f"{MAX_BATCH} (the schedule's prefix lives "
                                 f"in shared memory)")
+    smem = shared_bytes(b, h // k.shape[1], d, q.element_size())
+    if smem > SMEM_OPTIN:
+        raise KernelBudgetError(f"decode_attention: {smem} shared bytes a "
+                                f"block > {SMEM_OPTIN}")
     if k.shape[2] > 2 ** 30 or b * k.shape[1] > 2 ** 24:
         raise KernelBudgetError(f"decode_attention: cache {tuple(k.shape)} "
                                 f"beyond S <= 2^30 and B * Hkv <= 2^24")

@@ -4,11 +4,16 @@
         --batch 4 --prompt-len 32 --gen 16             # reduced config
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --full \
         --attn-impl pallas --batch 8 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve_llm --full \
+        --arch olmoe-1b-7b --attn-impl pallas --batch 8 --prompt-len 2048
 
 The same synthetic prompts and greedy loop as the JAX package's
-``serve_llm``.  It runs on the GPU unless ``device="cpu"`` is passed.
-Unlike the reference's ``--reduced``, which cannot be turned off,
-``--full`` serves the full-width config.
+``serve_llm``, for every ported ``--arch``.  A vision config's prompts
+follow its ``frontend_len`` patch embeddings (the frontend is a stub in
+both packages: the JAX package feeds zeros, this one a seeded normal
+prefix at the token embeddings' scale), and decoding starts after prefix
+and prompt.  It runs on the GPU unless ``device="cpu"`` is passed.  Unlike the reference's ``--reduced``, which
+cannot be turned off, ``--full`` serves the full-width config.
 """
 from __future__ import annotations
 
@@ -57,14 +62,30 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+#: std of the seeded vision prefix: the token embeddings' init scale
+PREFIX_STD = 0.02
+
+
+def vision_prefix(cfg, batch: int, seed: int, device) -> torch.Tensor:
+    """A seeded stand-in for ``batch`` images' patch embeddings
+    ``[B, frontend_len, d_model]`` in the compute dtype."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(batch, cfg.frontend_len, cfg.d_model, generator=gen,
+                    device=device) * PREFIX_STD
+    return x.to(cfg.compute_dtype)
+
+
 def generate(arch: str = "qwen3-0.6b", reduced: bool = True,
              batch: int = 4, prompt_len: int = 32, gen: int = 16,
              seed: int = 0, greedy: bool = True, *, device="cuda",
              params: Optional[Dict] = None, attn_impl: Optional[str] = None,
-             return_logits: bool = False) -> Dict:
+             return_logits: bool = False, n_layers: Optional[int] = None
+             ) -> Dict:
     """Prefill ``batch`` synthetic prompts and decode ``gen`` tokens
     greedily.  ``params`` (e.g. carried over from the JAX package) replace
-    the weights drawn from ``seed``; ``attn_impl`` overrides the config's.
+    the weights drawn from ``seed``; ``attn_impl`` overrides the config's,
+    ``n_layers`` its depth.  A vision config's prompts follow
+    :func:`vision_prefix` of ``seed + 1``.
     Returns ``completions`` [B, gen], ``stats`` and, with
     ``return_logits``, ``prefill_logits`` [B, V] and ``decode_logits``
     [B, gen, V] (f32)."""
@@ -75,6 +96,8 @@ def generate(arch: str = "qwen3-0.6b", reduced: bool = True,
         cfg = cfg.reduced()
     if attn_impl is not None:
         cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     sc = null_ctx()
     model = Model(cfg, device)
     dev = model.device
@@ -84,12 +107,16 @@ def generate(arch: str = "qwen3-0.6b", reduced: bool = True,
     # cast is then a no-op)
     params = PM.cast_compute(params, cfg.compute_dtype)
 
-    cache_len = prompt_len + gen
-    prefill = make_prefill_step(model, sc, cache_len)
-    decode = make_decode_step(model, sc)
     prompts = synthetic_prompts(batch, prompt_len, cfg.vocab)
     pf_batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
                                           device=dev)}
+    base = prompt_len
+    if cfg.frontend == "vision":
+        pf_batch["prefix"] = vision_prefix(cfg, batch, seed + 1, dev)
+        base += cfg.frontend_len
+    cache_len = base + gen
+    prefill = make_prefill_step(model, sc, cache_len)
+    decode = make_decode_step(model, sc)
 
     stats = ServeStats()
     _sync(dev)
@@ -103,7 +130,7 @@ def generate(arch: str = "qwen3-0.6b", reduced: bool = True,
     t0 = time.perf_counter()
     for i in range(gen):
         out_tokens.append(tok)
-        logits, caches = decode(params, tok, caches, prompt_len + i)
+        logits, caches = decode(params, tok, caches, base + i)
         if return_logits:
             step_logits.append(logits)
         tok = torch.argmax(logits, -1)

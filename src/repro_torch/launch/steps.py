@@ -6,18 +6,22 @@ the same function eagerly.  The train step is the whole of the JAX
 package's: the loss, its gradient over every parameter leaf
 (``torch.autograd.grad``), the global-norm clip and the AdamW update,
 with the same metrics.  Like the donated XLA step, it updates the state's
-tensors in place (``optim/adamw.py``).
+tensors in place (``optim/adamw.py``).  The sharding glue
+(:func:`train_state_pspecs`, :func:`batch_pspecs`, :func:`cache_pspecs`)
+maps each tensor of a cell onto a mesh's axes, as tuples of
+``PartitionSpec`` entries.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed.shardings import ShardingCtx, null_ctx
 from repro_torch.models import param as PM
-from repro_torch.models.modeling import Model
+from repro_torch.models.modeling import Model, input_specs
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 
@@ -91,6 +95,12 @@ def abstract_train_state(model: Model) -> Dict:
                                         device="meta")}}
 
 
+def train_state_pspecs(model: Model, sc: ShardingCtx) -> Dict:
+    pspecs = model.param_pspecs(sc.rules, sc.mesh_shape)
+    return {"params": pspecs,
+            "opt": {"m": pspecs, "v": pspecs, "step": ()}}
+
+
 # ---------------------------------------------------------------------------
 # serve
 # ---------------------------------------------------------------------------
@@ -109,3 +119,21 @@ def make_decode_step(model: Model, sc: ShardingCtx) -> Callable:
         return model.decode_step(params, tokens, caches, length, sc)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# sharding glue for a full (arch x shape x mesh) cell
+# ---------------------------------------------------------------------------
+
+
+def batch_pspecs(cfg: ArchConfig, shape: ShapeConfig,
+                 sc: ShardingCtx) -> Dict:
+    specs, axes = input_specs(cfg, shape)
+    return {name: sc.pspec(*axes[name], shape=specs[name].shape)
+            for name in specs}
+
+
+def cache_pspecs(model: Model, batch: int, cache_len: int,
+                 sc: ShardingCtx) -> Any:
+    spec = model.cache_spec(batch, cache_len)
+    return PM.param_pspecs(spec, sc.rules, sc.mesh_shape)

@@ -11,7 +11,9 @@ watchdog, the same checkpoint cadence.  It runs on the card unless
 ``--device cpu`` is given.  One device: ``--model-parallel`` above 1
 raises.  Unlike the reference's ``--reduced``, which cannot be turned
 off, ``--full`` trains the full-width config.  ``train_loop`` also
-returns each step's seconds and the checkpoints' save and restore ms.
+returns each step's seconds and the checkpoints' save and restore ms,
+and, for an MoE config, each step's load-balancing aux loss (``aux``,
+also in the log lines).
 """
 from __future__ import annotations
 
@@ -129,6 +131,8 @@ def train_loop(run: TrainRun) -> Dict:
     rng = np.random.default_rng(
         run.seed + start_step + 7919 * run.restarts_seen)
     watchdog = StepWatchdog()
+    moe = cfg.family == "moe"
+    auxes = []
     for step in range(start_step, run.steps):
         batch = pipe.next_batch()
         if rng.random() < run.fault_prob:
@@ -138,9 +142,12 @@ def train_loop(run: TrainRun) -> Dict:
         loss = float(metrics["loss"])
         watchdog.observe(step, time.perf_counter() - t0)
         run.losses.append(loss)
+        if moe:
+            auxes.append(float(metrics["aux"]))
         if step % run.log_every == 0 or step == run.steps - 1:
             print(f"[train] step {step:5d} loss {loss:.4f} "
-                  f"lr {float(metrics['lr']):.2e} "
+                  + (f"aux {auxes[-1]:.4f} " if moe else "")
+                  + f"lr {float(metrics['lr']):.2e} "
                   f"gnorm {float(metrics['grad_norm']):.3f}",
                   flush=True)
         if mgr is not None and ((step + 1) % run.ckpt_every == 0
@@ -153,7 +160,7 @@ def train_loop(run: TrainRun) -> Dict:
     return {"final_loss": run.losses[-1] if run.losses else float("nan"),
             "losses": run.losses, "straggler_events": watchdog.events,
             "step_s": watchdog.times, "start_step": start_step,
-            "checkpoint": ckpt}
+            "checkpoint": ckpt, **({"aux": auxes} if moe else {})}
 
 
 def main(argv=None) -> None:

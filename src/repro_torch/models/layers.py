@@ -1,4 +1,4 @@
-"""Shared neural layers: RMSNorm, RoPE, GQA attention, MLP.
+"""Shared neural layers: RMSNorm, RoPE, GQA attention, MLP, MoE.
 
 All layers are plain functions over nested dicts of tensors (the
 parameter trees of ``repro_torch.models.param``), as in the JAX package.
@@ -16,12 +16,17 @@ Attention has three execution paths:
 Products that the JAX package asks for with
 ``preferred_element_type=f32`` are taken here on f32 copies of their
 operands: a product of two bf16 values is exact in f32, so the sums are
-the same f32 sums.  Ring attention, window caches and MoE are not ported.
+the same f32 sums.  MoE is the JAX package's mesh-less path (a
+capacity-bounded scatter into ``[E, C, d]`` and batched expert products);
+its expert-parallel ``moe_shardmap``, ring attention and window caches
+are not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -345,3 +350,135 @@ def mlp(p: Dict, x: torch.Tensor, act: str, sc: ShardingCtx) -> torch.Tensor:
     else:
         raise ValueError(act)
     return torch.einsum("bsf,fd->bsd", h, p["w_out"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, capacity-bounded scatter dispatch)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_model: int
+    d_ff: int
+    act: str = "swiglu"
+    capacity_factor: float = 1.25
+
+
+def moe_spec(c: MoEConfig, dtype=torch.bfloat16) -> Dict:
+    p = {
+        "router": ArraySpec((c.d_model, c.n_experts), F32,
+                            ("embed", None), init="fan_in"),
+        "w_in": ArraySpec((c.n_experts, c.d_model, c.d_ff), dtype,
+                          ("expert", "embed", None), init="fan_in"),
+        "w_out": ArraySpec((c.n_experts, c.d_ff, c.d_model), dtype,
+                           ("expert", None, "embed"), init="fan_in"),
+    }
+    if c.act == "swiglu":
+        p["w_gate"] = ArraySpec((c.n_experts, c.d_model, c.d_ff), dtype,
+                                ("expert", "embed", None), init="fan_in")
+    return p
+
+
+def moe_capacity(c: MoEConfig, tokens: int) -> int:
+    """Slots per expert: ``ceil(T k / E * capacity_factor)`` rounded up to
+    a multiple of 128, at least 128."""
+    cap = math.ceil(tokens * c.top_k / c.n_experts * c.capacity_factor)
+    return max((cap + 127) // 128 * 128, 128)
+
+
+_ROUTES: Optional[List[Dict[str, torch.Tensor]]] = None
+
+
+@contextlib.contextmanager
+def recording_routes() -> Iterator[List[Dict[str, torch.Tensor]]]:
+    """Every :func:`moe` call inside the block appends its routing to the
+    yielded list: ``experts`` ``[T, k]`` (each token's experts, by falling
+    probability) and ``kept`` ``[T, k]`` (False where the slot fell at or
+    past the expert's capacity and was dropped)."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
+
+
+def moe(p: Dict, c: MoEConfig, x: torch.Tensor, sc: ShardingCtx
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out [B,S,d], aux_loss scalar f32).
+
+    The JAX package's mesh-less path: f32 router softmax, top-k with the
+    weights renormalised, the Switch aux loss ``E * mean(f_e * P_e)`` from
+    the top-1 assignment; each (token, slot) takes the next free position
+    of its expert in token-major order, and positions at or past the
+    capacity are dropped (they add nothing); the experts run
+    as batched products over ``[E, C, d]`` in x's dtype, and the outputs
+    come back weighted in f32 and summed over k.  The expert-parallel
+    path (``moe_shardmap``) needs a ``model`` mesh axis over several
+    cards and is not ported."""
+    if sc.mesh is not None:
+        raise NotImplementedError("moe over a mesh (the expert-parallel "
+                                  "moe_shardmap) is not yet ported")
+    b, s, d = x.shape
+    t = b * s
+    e, k = c.n_experts, c.top_k
+    xt = x.reshape(t, d)
+
+    logits = xt.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, k, dim=-1, sorted=True)      # [t,k]
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+
+    # load-balancing aux loss (Switch): E * sum_e f_e * P_e
+    assign = F.one_hot(top_e[:, 0], e).to(F32)
+    aux = e * torch.mean(assign.mean(0) * probs.mean(0))
+
+    cap = moe_capacity(c, t)
+    e_idx = top_e.reshape(t * k)
+    # a slot's position: the earlier slots (token-major) of its expert, the
+    # exclusive cumsum of the [t*k, e] one-hot along the slots, taken as an
+    # inclusive one of its transpose less one (a scan along the last,
+    # contiguous axis: along the first, the card's scan kernel took most
+    # of a full-width prefill)
+    onehot_t = (e_idx[None, :] == torch.arange(e, device=x.device)[:, None]
+                ).to(torch.int32)                                 # [e,t*k]
+    pos_sel = torch.cumsum(onehot_t, dim=1, dtype=torch.int32).gather(
+        0, e_idx[None, :])[0].long() - 1                          # [t*k]
+    del onehot_t
+    keep = pos_sel < cap
+    if _ROUTES is not None:
+        _ROUTES.append({"experts": top_e.detach(),
+                        "kept": keep.reshape(t, k)})
+
+    # every slot's row added into zeros: a kept slot at (e, pos), a
+    # dropped one at a spare row of its own past the E x cap buffer, so no
+    # two rows meet and the buffer holds each kept row exactly.  (The
+    # reference adds the dropped slots' rows as zeros at (e, cap - 1):
+    # the same buffer, but the many duplicate targets serialise the
+    # accumulation on the card.)
+    slot = torch.arange(t * k, device=x.device)
+    target = torch.where(keep, e_idx * cap + pos_sel, e * cap + slot)
+    buf = torch.zeros(e * cap + t * k, d, dtype=xt.dtype,
+                      device=x.device).index_put(
+        (target,), xt[slot // k], accumulate=True)[:e * cap]
+    buf = sc.constrain(buf.view(e, cap, d), "act_expert", "act_cap", None)
+
+    h = torch.bmm(buf, p["w_in"])
+    if c.act == "swiglu":
+        g = torch.bmm(buf, p["w_gate"])
+        h = F.silu(g) * h
+    elif c.act == "gelu":
+        h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    else:
+        raise ValueError(c.act)
+    y_e = torch.bmm(h, p["w_out"])
+    y_e = sc.constrain(y_e, "act_expert", "act_cap", None)
+
+    gathered = y_e[e_idx, torch.where(keep, pos_sel, 0)]           # [t*k,d]
+    weighted = torch.where(keep[:, None], gathered.float(), 0.0) \
+        * top_p.reshape(t * k, 1)
+    out = weighted.reshape(t, k, d).sum(dim=1)
+    return out.reshape(b, s, d).to(x.dtype), aux

@@ -8,11 +8,14 @@
     logits, caches = m.prefill(params, batch, cache_len=...)
     logits, caches = m.decode_step(params, tokens, caches, length)
 
-The dense family only.  ``loss`` is what the train step differentiates
-(``launch/steps.py``); ``forward``, ``prefill`` and ``decode_step`` take
-no gradient.  ``input_specs(cfg, shape)`` gives the ``meta`` stand-ins of
-every model input of an (arch x shape) cell, and ``demo_batch`` a
-concrete random batch of those shapes.
+The dense and moe families (``transformer.FAMILIES``); a vision config
+takes its precomputed patch embeddings as ``batch["prefix"]``.  ``loss``
+is what the train step differentiates (``launch/steps.py``);
+``forward``, ``prefill`` and ``decode_step`` take no gradient.
+``input_specs(cfg, shape)`` gives the ``meta`` stand-ins of every model
+input of an (arch x shape) cell, and ``demo_batch`` a concrete random
+batch of those shapes.  ``param_pspecs(rules, mesh_shape)`` maps the
+parameters' logical axes onto a mesh's axes.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ class Model:
     device: Union[str, torch.device] = "cuda"
 
     def __post_init__(self):
-        TF.require_dense(self.cfg)
+        TF.require_ported(self.cfg)
         self.device = resolve_device(self.device)
 
     @property
@@ -70,6 +73,9 @@ class Model:
         """The parameter tree as ``meta`` tensors: shapes and dtypes, no
         storage (the JAX package's ``ShapeDtypeStruct``s)."""
         return PM.abstract_params(self.spec)
+
+    def param_pspecs(self, rules, mesh_shape) -> Dict:
+        return PM.param_pspecs(self.spec, rules, mesh_shape)
 
     def n_params(self) -> int:
         return PM.count_params(self.spec)

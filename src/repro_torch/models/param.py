@@ -12,6 +12,9 @@ with the JAX package's sharding rules).  The consumers here:
 * ``abstract_params``   -- the same tree on the ``meta`` device (shapes
   and dtypes, no storage): the counterpart of ``ShapeDtypeStruct``s,
 * ``cast_compute``      -- the working-precision copy,
+* ``param_pspecs``      -- logical axes -> mesh axes under sharding rules
+  (``repro_torch.distributed.shardings``), each leaf a tuple of
+  ``PartitionSpec`` entries, with the divisibility fallback,
 * ``count_params``, ``tree_bytes``.
 
 Tree order is sorted dict keys, as ``jax.tree`` flattens dicts, and
@@ -26,6 +29,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.shardings import place
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +163,25 @@ def abstract_params(tree) -> Dict:
     no storage is allocated."""
     return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
                                           device="meta"), tree)
+
+
+def param_pspecs(tree, rules: Dict[str, Any], mesh_shape: Dict[str, int]):
+    """Each spec leaf's mesh axes under ``rules`` (``rules[name]`` is a
+    mesh axis name, a tuple of names, or None), as a tuple of entries.  A
+    dimension whose size its mesh extent does not divide falls back to
+    replication (recorded once per (axis, size, mesh axes) in
+    ``param_pspecs.fallbacks``)."""
+    fallbacks = set()
+
+    def one(spec: ArraySpec):
+        parts, fb = place(list(zip(spec.axes, spec.shape)), rules,
+                          mesh_shape, skip_absent=False)
+        fallbacks.update(fb)
+        return parts
+
+    out = tree_map(one, tree)
+    param_pspecs.fallbacks = fallbacks
+    return out
 
 
 def count_params(tree) -> int:

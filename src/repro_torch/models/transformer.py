@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly, dense family.
+"""Decoder-only LM assembly, dense and moe families.
 
 One parameter tree + entry points per model:
 
@@ -16,8 +16,10 @@ has no effect here).  ``remat`` applies, as in the JAX package, to each
 layer of a forward that autograd records (:func:`_remat`): ``"full"``
 keeps only each layer's input for the backward pass and recomputes the
 rest, ``"dots"`` also keeps the outputs of the products without batch
-dimensions, ``"none"`` keeps everything.  Other families (moe, ssm,
-hybrid, encdec) raise "not yet ported".
+dimensions, ``"none"`` keeps everything.  A moe layer's aux loss sums
+over the layers into ``forward``'s second output, and ``lm_loss`` adds
+0.01 of it.  Other families (ssm, hybrid, encdec) raise "not yet
+ported".
 """
 from __future__ import annotations
 
@@ -36,11 +38,15 @@ from repro_torch.models.param import ArraySpec, tree_map
 F32 = torch.float32
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+#: The families this module assembles.
+FAMILIES = ("dense", "moe")
+
+
+def require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not yet ported to "
-            f"repro_torch (dense only)")
+            f"repro_torch (ported: {', '.join(FAMILIES)})")
 
 
 def stack_specs(tree, n: int):
@@ -62,22 +68,31 @@ def _attn_cfg(cfg: ArchConfig, window: Optional[int] = None) -> L.AttnConfig:
         impl=cfg.attn_impl)
 
 
+def _moe_cfg(cfg: ArchConfig) -> L.MoEConfig:
+    return L.MoEConfig(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                       d_model=cfg.d_model, d_ff=cfg.d_ff, act=cfg.act)
+
+
 # ---------------------------------------------------------------------------
 # layer specs
 # ---------------------------------------------------------------------------
 
 
 def _layer_spec(cfg: ArchConfig) -> Dict:
-    require_dense(cfg)
+    require_ported(cfg)
     dt = cfg.param_dtype
-    return {"ln1": L.rms_norm_spec(cfg.d_model),
+    spec = {"ln1": L.rms_norm_spec(cfg.d_model),
             "attn": L.attention_spec(_attn_cfg(cfg), dt),
-            "ln2": L.rms_norm_spec(cfg.d_model),
-            "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, dt)}
+            "ln2": L.rms_norm_spec(cfg.d_model)}
+    if cfg.family == "moe":
+        spec["moe"] = L.moe_spec(_moe_cfg(cfg), dt)
+    else:
+        spec["mlp"] = L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, dt)
+    return spec
 
 
 def lm_spec(cfg: ArchConfig) -> Dict:
-    require_dense(cfg)
+    require_ported(cfg)
     dt = cfg.param_dtype
     return {
         "embed": ArraySpec((cfg.padded_vocab, cfg.d_model), dt,
@@ -94,12 +109,22 @@ def lm_spec(cfg: ArchConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 
-def _dense_block(cfg, p, x, positions, sc):
+def _ffn(cfg, p, x, sc):
+    """The layer's second residual branch and its aux loss: the MLP (aux
+    0) or the MoE layer."""
+    h = L.rms_norm(p["ln2"], x)
+    if cfg.family == "moe":
+        return L.moe(p["moe"], _moe_cfg(cfg), h, sc)
+    return (L.mlp(p["mlp"], h, cfg.act, sc),
+            torch.zeros((), dtype=F32, device=x.device))
+
+
+def _block(cfg, p, x, positions, sc):
     x = x + L.attention(p["attn"], _attn_cfg(cfg),
                         L.rms_norm(p["ln1"], x), positions, sc)
-    x = x + L.mlp(p["mlp"], L.rms_norm(p["ln2"], x), cfg.act, sc)
-    x = sc.constrain(x, "batch", "seq", "act_embed")
-    return x, torch.zeros((), dtype=F32, device=x.device)
+    y, aux = _ffn(cfg, p, x, sc)
+    x = sc.constrain(x + y, "batch", "seq", "act_embed")
+    return x, aux
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -144,8 +169,9 @@ def _head(cfg, params, x):
 
 def forward(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits [B,S_total,V] in the compute dtype, aux_loss)."""
-    require_dense(cfg)
+    """Returns (logits [B,S_total,V] in the compute dtype, aux_loss: the
+    moe layers' summed, 0 for dense)."""
+    require_ported(cfg)
     # the embedding stays in its own dtype: the gather reads the master
     # weights and casts what it read, the same values as a gather from
     # the cast copy, but the gather's backward then sums each token's
@@ -163,7 +189,7 @@ def forward(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx
     aux_total = torch.zeros((), dtype=F32, device=x.device)
     for i in range(_n_layers(params)):
         lp = layer_params(params["layers"], i)
-        x, a = _remat(cfg, lambda xx, lp=lp: _dense_block(
+        x, a = _remat(cfg, lambda xx, lp=lp: _block(
             cfg, lp, xx, positions, sc))(x)
         aux_total = aux_total + a
     x = L.rms_norm(params["final_norm"], x)
@@ -198,7 +224,7 @@ def lm_loss(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx
 
 
 def cache_spec(cfg: ArchConfig, batch: int, cache_len: int) -> Dict:
-    require_dense(cfg)
+    require_ported(cfg)
     one = L.attention_cache_spec(_attn_cfg(cfg), batch, cache_len,
                                  cfg.compute_dtype)
     return {"layers": stack_specs(one, cfg.n_layers)}
@@ -207,7 +233,7 @@ def cache_spec(cfg: ArchConfig, batch: int, cache_len: int) -> Dict:
 def prefill(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx,
             cache_len: int):
     """Full-sequence prefill -> (last-token logits [B,V] f32, caches)."""
-    require_dense(cfg)
+    require_ported(cfg)
     params = PM.cast_compute(params, cfg.compute_dtype)
     x = _embed_tokens(cfg, params, batch["tokens"], sc)
     prefix = batch.get("prefix")
@@ -224,7 +250,7 @@ def prefill(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx,
                                        L.rms_norm(lp["ln1"], x), positions,
                                        sc, cache_len)
         x = x + a
-        x = x + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], x), cfg.act, sc)
+        x = x + _ffn(cfg, lp, x, sc)[0]
         ks.append(cache["k"])
         vs.append(cache["v"])
     caches = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
@@ -236,7 +262,7 @@ def decode_step(cfg: ArchConfig, params, tokens: torch.Tensor,
                 caches: Dict, length, sc: ShardingCtx):
     """tokens: [B] int; length: tokens already cached.  Returns
     (logits [B,V] f32, caches) -- the caches updated in place."""
-    require_dense(cfg)
+    require_ported(cfg)
     params = PM.cast_compute(params, cfg.compute_dtype)
     x = params["embed"][tokens[:, None]].to(cfg.compute_dtype)
     acfg = _attn_cfg(cfg)
@@ -247,7 +273,7 @@ def decode_step(cfg: ArchConfig, params, tokens: torch.Tensor,
                                   L.rms_norm(lp["ln1"], x),
                                   {"k": kc[i], "v": vc[i]}, length, sc)
         x = x + a
-        x = x + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], x), cfg.act, sc)
+        x = x + _ffn(cfg, lp, x, sc)[0]
     x = L.rms_norm(params["final_norm"], x)
     return _head(cfg, params, x)[:, 0].to(F32), caches
 

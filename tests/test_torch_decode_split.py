@@ -179,6 +179,11 @@ def emulate_split(q, k, v, lengths, grid, scale=None):
     (4, 8, 1, 64, 256, [64, 9, 8, 0], 12),
     (2, 6, 3, 300, 16, [300, 299], 9),
     (2, 2, 2, 400, 24, [400, 3], 5),
+    # beyond 8 query heads per KV head: starcoder2-7b's group 9,
+    # recurrentgemma-2b's 10, and the unit's largest, 16
+    (3, 36, 4, 300, 128, [300, 1, 177], 20),
+    (2, 10, 1, 200, 256, [200, 0], 6),
+    (2, 32, 2, 1100, 16, [1100, 600], 7),
 ])
 def test_split_and_fold_match_plain_and_jax(b, h, hkv, s, d, lens, grid):
     rng = np.random.default_rng(b * 100 + s + d)
@@ -223,3 +228,26 @@ def test_the_wrapper_takes_the_plain_version_on_the_cpu():
     assert DA.launches == before
     torch.testing.assert_close(got, DA.decode_attention_plain(q, k, k,
                                                               lengths))
+
+
+def test_shared_memory_fits_every_shape_the_kernel_takes():
+    """The Python mirror of the unit's layout: every group up to
+    ``MAX_GROUP`` at every head width and the largest batch fits the
+    227 KB a block may take on sm_90, so the wrapper's shared-memory
+    check refuses none of them; a group above ``MAX_GROUP`` is refused."""
+    assert DA.MAX_GROUP >= 16
+    for group in range(1, DA.MAX_GROUP + 1):
+        for d in range(DA.MIN_D, DA.MAX_D + 1, 8):
+            for elem in (2, 4):
+                assert DA.shared_bytes(DA.MAX_BATCH, group, d, elem) \
+                    <= DA.SMEM_OPTIN, (group, d, elem)
+    # the serving shapes of starcoder2-7b (group 9, D 128) and
+    # recurrentgemma-2b (group 10, D 256) pass the card's checks
+    for h, hkv, d in ((36, 4, 128), (10, 1, 256)):
+        q = torch.zeros(8, h, d, dtype=torch.bfloat16)
+        k = torch.zeros(8, hkv, 64, d, dtype=torch.bfloat16)
+        DA._check_card(q, k, k, torch.ones(8, dtype=torch.int32))
+    q = torch.zeros(1, DA.MAX_GROUP + 1, 16)
+    k = torch.zeros(1, 1, 8, 16)
+    with pytest.raises(DA.KernelBudgetError, match="query heads per KV"):
+        DA._check_card(q, k, k, torch.ones(1, dtype=torch.int32))

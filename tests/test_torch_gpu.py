@@ -314,6 +314,50 @@ def test_decode_kernel_odd_groups_and_widths(card, dtype, group, d):
                            dtype)
 
 
+#: (group, hkv, d): starcoder2-7b's 36 / 4 heads at D 128,
+#: recurrentgemma-2b's 10 / 1 at D 256, and the unit's largest group
+LARGE_GROUPS = [(9, 4, 128), (10, 1, 256), (16, 2, 64), (16, 1, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group,hkv,d", LARGE_GROUPS)
+def test_decode_kernel_beyond_8_heads_per_kv_head(card, dtype, group, hkv,
+                                                  d):
+    """Groups above the 8 warps: each warp runs the softmax of several
+    heads (the TPU kernel takes any group)."""
+    b, s = 4, 2080
+    q, k, v = _decode_inputs(card, dtype, b, hkv * group, hkv, s, d,
+                             group * d)
+    lengths = torch.tensor([2049, 1, 0, 1500], dtype=torch.int32,
+                           device=card)
+    before = DA.launches
+    got = DA.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert DA.launches == before + 1
+    assert_within_rounding(got, DA.decode_attention_plain(q, k, v, lengths),
+                           dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group,d", [(9, 128), (10, 256), (16, 256)])
+def test_decode_resources_beyond_8_heads(card, group, d):
+    """The variant of more than 8 heads builds, takes the shared bytes of
+    the Python mirror of its layout and fits one block on an SM at
+    least."""
+    for dtype in (torch.bfloat16, torch.float32):
+        res = DA.resources(dtype, 8, group, d)
+        assert res["dynamic_smem"] == DA.shared_bytes(
+            8, group, d, torch.tensor([], dtype=dtype).element_size())
+        assert res["dynamic_smem"] <= DA.SMEM_OPTIN
+        assert res["blocks_per_sm"] >= 1 and res["threads"] == 256
+    with pytest.raises(KernelBudgetError):
+        DA.decode_attention(torch.zeros(1, DA.MAX_GROUP + 1, 16, device=card),
+                            torch.zeros(1, 1, 8, 16, device=card),
+                            torch.zeros(1, 1, 8, 16, device=card),
+                            torch.ones(1, dtype=torch.int32, device=card))
+
+
 @pytest.mark.gpu
 def test_decode_kernel_above_65535_pairs(card):
     """B * Hkv = 65 536: the persistent grid has no per-pair extent."""

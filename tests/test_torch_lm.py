@@ -421,7 +421,7 @@ def test_registry_and_device_policy():
     with pytest.raises(KeyError):
         get("no-such-arch")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        Model(dataclasses.replace(cfg, family="moe"), device="cpu")
+        Model(dataclasses.replace(cfg, family="ssm"), device="cpu")
     with pytest.raises(NotImplementedError):
         L.attention({}, L.AttnConfig(8, 2, 1, 4, impl="splash"),
                     torch.zeros(1, 2, 8), torch.zeros(1, 2), None)
