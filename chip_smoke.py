@@ -221,12 +221,32 @@ Phases, in order; any failure exits non-zero:
    their plain versions; the MoE gate on two batches of such token ids
    (:func:`moe_gate`: layer 0 against :func:`moe_reference`, the logits
    and route sets of the kernel path against flash's plain version, each
-   part against planted faults); (b) ``decode_attention``
+   part against planted faults; beside part 3, the share of route sets
+   that differ with SDPA in flash's place); (b) ``decode_attention``
    against its plain version at groups 9 (D 128) and 10 (D 256), with
    planted faults; (c) ``starcoder2-7b`` and ``pixtral-12b`` (with its
    seeded 256-row prefix) at full width with 4 layers, B 8 x 2048 and 4
    decode steps, the prefill logits against the blockwise path's within
-   the bf16 budget, flash at its shape.  Its lines are tagged ``[moe]``.
+   the bf16 budget, flash at its shape.  Its lines are tagged ``[moe]``;
+16. the encdec family, after phase 15 (its state freed):
+   ``seamless-m4t-large-v2`` at full width and depth from the seed (12
+   encoder and 12 decoder layers, each stacked weight at its own
+   fan-in); its f32 blockwise prefill first, for the budget, then the
+   f32 masters freed; (a) served B 8 x 2048 + 32 greedy tokens through
+   ``serve_llm.generate`` with 512 seeded frame embeddings, the kernels'
+   counts reset before and read after (flash 24 on the tensor cores: 12
+   non-causal in the encoder, 12 causal in the decoder's prefill;
+   decode 384), prefill ms, decode tokens/s, peak bytes; (c) the gate:
+   the served prefill logits within the bf16 budget (blockwise bf16
+   against blockwise f32) of the blockwise bf16 path's, the first decode
+   step's logits within it of a forward's (2 rows), and three planted
+   faults beyond it -- frames from another seed, the cross attention
+   skipped in every decoder layer, the encoder run causally; (b) flash
+   at the encoder's (S 512, non-causal) and the decoder's (S 2048,
+   causal) layer-0 inputs and decode at the first step's (group 1, D
+   64, lengths 2049) against their plain versions with phase 6's planted
+   faults, taken from a kernel-path prefill of token ids drawn over the
+   vocab.  Its lines are tagged ``[encdec]``.
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1956,17 +1976,17 @@ FAN_IN = {"wq": "d", "wk": "d", "wv": "d", "wo": "hd", "w_in": "d",
           "w_gate": "d", "w_out": "f", "router": "d"}
 
 
-def per_matrix_scale(torch, cfg, lp) -> dict:
-    """``lp`` with each stacked layer weight rescaled, in place, from the
-    init's fan-in (every axis but the last: the layer and expert axes
-    too) to its own contraction's, 1 / sqrt(d) for ``wq``: a layer's
-    attention and experts then add to the residual stream what a
+def per_matrix_scale(torch, cfg, stacked) -> dict:
+    """Each weight of the stacked layer tree ``stacked`` rescaled, in
+    place, from the init's fan-in (every axis but the last: the layer and
+    expert axes too) to its own contraction's, 1 / sqrt(d) for ``wq``: a
+    layer's attention and experts then add to the residual stream what a
     trained model's do, not ~1e-4 of it.  Returns the factors."""
     from repro_torch.models import param as PM
     sizes = {"d": cfg.d_model, "hd": cfg.n_heads * cfg.head_dim_,
              "f": cfg.d_ff}
     factors = {}
-    for path, leaf in PM.tree_items(lp["layers"]):
+    for path, leaf in PM.tree_items(stacked):
         name = path[-1]
         if name in FAN_IN:
             init_fan = math.prod(leaf.shape[:-1])
@@ -1988,9 +2008,13 @@ def moe_gate(torch, L, FL, Model, cfg, lp, prompt_seed: int) -> tuple:
     route sets agree in every layer, within :data:`ROUTE_ROW_ROUNDINGS`
     (faults at the last layer, whose output moves no route); (3) the
     share of (token, layer) route sets that differ between the two
-    paths, under :data:`ROUTE_FLIP_LIMIT` (faults at layer 0).  The
-    prompts are :func:`random_prompts` of ``prompt_seed``.  Returns the
-    numbers and the checks, which the phase makes at its end."""
+    paths, under :data:`ROUTE_FLIP_LIMIT` (faults at layer 0).  Beside
+    part 3, the same share with SDPA in flash's place against the plain
+    path (``sdpa_paths``, reported only): how far another correct bf16
+    attention moves the routes.  The prompts are :func:`random_prompts`
+    of ``prompt_seed``.  Returns the numbers and the checks, which the
+    phase makes at its end."""
+    import torch.nn.functional as F
     from repro_torch.distributed.shardings import null_ctx
     out, checks = {"prompt_seed": prompt_seed}, []
     tokens = random_prompts(torch, cfg.vocab, prompt_seed)
@@ -2000,12 +2024,18 @@ def moe_gate(torch, L, FL, Model, cfg, lp, prompt_seed: int) -> tuple:
     t0 = time.perf_counter()
     model = Model(cfg)
 
-    def run(params=None, keep_at=None, plain=False):
+    def sdpa(q, k, v, *, causal=True, scale=None):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              scale=scale, enable_gqa=True)
+
+    def run(params=None, keep_at=None, plain=False, library=False):
         orig = L.moe, FL.flash_attention
         if keep_at is not None:
             L.moe = keeping_dropped(L, keep_at, n)
         if plain:
             FL.flash_attention = FL.flash_attention_plain
+        if library:
+            FL.flash_attention = sdpa
         try:
             with L.recording_routes() as routes:
                 logits, _ = model.forward(params or lp, batch)
@@ -2082,6 +2112,11 @@ def moe_gate(torch, L, FL, Model, cfg, lp, prompt_seed: int) -> tuple:
     out["paths"] = compare(logits_k, codes_k, "flash vs its plain version")
     out["dropped_per_layer"] = [int((c >= e).sum()) for c in codes_k]
     del logits_k
+    out["sdpa_paths"] = compare(*run(library=True),
+                                "SDPA vs flash's plain version")
+    out["route_sets_differ_kernel_sdpa"] = [
+        out["paths"]["route_sets_differ"],
+        out["sdpa_paths"]["route_sets_differ"]]
     checks.append((out["paths"]["tokens_agreeing"] > 0
                    and out["paths"]["agreeing_err_roundings"]
                    <= ROUTE_ROW_ROUNDINGS,
@@ -2177,7 +2212,7 @@ def olmoe_serving(torch, F, CB, FL, DA, L, PM, Model, serve_llm, seed):
     model = Model(cfg)
     t0 = time.perf_counter()
     lp = PM.cast_compute(model.init(seed), cfg.compute_dtype)
-    scale = per_matrix_scale(torch, cfg, lp)
+    scale = per_matrix_scale(torch, cfg, lp["layers"])
     torch.cuda.synchronize()
     out = {"arch": MOE_ARCH, "params": model.n_params(),
            "init_s": time.perf_counter() - t0,
@@ -2249,10 +2284,13 @@ def olmoe_serving(torch, F, CB, FL, DA, L, PM, Model, serve_llm, seed):
                                  faults=False))
     del q, k, v_, lengths, dcap
     torch.cuda.empty_cache()
-    checks = []
+    checks, shares = [], {}
     for off in GATE_SEEDS:
-        _, c = moe_gate(torch, L, FL, Model, cfg, lp, seed + off)
+        gate, c = moe_gate(torch, L, FL, Model, cfg, lp, seed + off)
+        shares[seed + off] = gate["route_sets_differ_kernel_sdpa"]
         checks += c
+    log(f"[moe] route sets differing from the plain path's, [flash kernel, "
+        f"SDPA] by prompt seed: {json.dumps(shares)}")
     del lp
     torch.cuda.empty_cache()
     return out, records, checks
@@ -2382,6 +2420,224 @@ def moe_phase(torch, seed: int) -> list:
         f"15 took {time.perf_counter() - t0:.1f} s")
     for ok, what in checks:
         check(ok, what)
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the encdec family (seamless-m4t-large-v2 at full width)
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+#: prompt seed (an offset of the script's seed) of the prefill whose
+#: layer-0 inputs the kernel records take: token ids drawn over the
+#: vocab, since the serving prompts are ~98 % padding, whose identical V
+#: rows would hide a fault that only reweights the keys
+ENCDEC_RECORD_SEED = 103
+
+
+def over_budget(err: dict, noise: dict) -> float:
+    """The larger of a logit error's two ratios to the bf16 budget
+    (:data:`NOISE_FACTOR` x ``noise`` + :data:`NOISE_SLACK`; above 1:
+    outside it)."""
+    return max(err[k] / (NOISE_FACTOR * noise[k] + NOISE_SLACK[k])
+               for k in NOISE_SLACK)
+
+
+def encdec_gate(torch, serve_llm, ED, L, Model, model, lp, batch, res,
+                exact, cache_len: int, seed: int) -> dict:
+    """Phase 16 (c): the budget (blockwise bf16 against blockwise f32
+    prefill logits, ``exact``); the served prefill logits within it of
+    the blockwise bf16 path's; the first decode step's logits within it
+    of a forward's at that position (2 rows); and three planted faults
+    that must move the kernel path's prefill logits beyond it: frames
+    from another seed, the cross attention skipped in every decoder
+    layer, the encoder run causally."""
+    cfg = model.cfg
+    ref = Model(dataclasses.replace(cfg, attn_impl="blockwise")).prefill(
+        lp, batch, cache_len=cache_len)[0]
+    noise = logit_err(torch, ref, exact, "seamless blockwise bf16 vs f32")
+    out = {"blockwise_vs_f32": noise,
+           "prefill_vs_blockwise": logit_err(
+               torch, res["prefill_logits"], ref,
+               "seamless prefill pallas vs blockwise")}
+    rows = 2
+    seq = torch.cat([batch["tokens"][:rows], torch.as_tensor(
+        res["completions"][:rows, :1], device="cuda")], dim=1)
+    full = model.forward(lp, {"tokens": seq,
+                              "enc_embeds": batch["enc_embeds"][:rows]})[0]
+    out["decode_vs_forward"] = logit_err(
+        torch, res["decode_logits"][:rows, 0], full[:, SERVE_PROMPT],
+        "seamless decode step 0 vs forward")
+    del full
+    for key in ("prefill_vs_blockwise", "decode_vs_forward"):
+        out[key]["over_budget"] = over_budget(out[key], noise)
+
+    def kernel_prefill(b=batch):
+        return model.prefill(lp, b, cache_len=cache_len)[0]
+
+    def patched(module, name, fn):
+        orig = getattr(module, name)
+        setattr(module, name, fn(orig))
+        try:
+            return kernel_prefill()
+        finally:
+            setattr(module, name, orig)
+
+    frames = batch["enc_embeds"]
+    bad = {
+        "frames from another seed": kernel_prefill(dict(
+            batch, enc_embeds=serve_llm.audio_frames(
+                cfg, frames.shape[0], frames.shape[1], seed + 2, "cuda"))),
+        "cross attention skipped": patched(
+            ED, "_cross_attend",
+            lambda orig: lambda p, c, x, k, v: torch.zeros_like(x)),
+        # the encoder's self attention is the only L.attention of prefill
+        "encoder causal": patched(
+            L, "attention", lambda orig: lambda p, c, *a: orig(
+                p, dataclasses.replace(c, causal=True), *a)),
+    }
+    out["faults"] = {}
+    for name, logits in bad.items():
+        err = logit_err(torch, logits, ref, f"seamless {name}")
+        out["faults"][name] = dict(err, over_budget=over_budget(err, noise))
+    del bad, ref
+    log(f"[encdec] gate {json.dumps(out)}")
+    for key in ("prefill_vs_blockwise", "decode_vs_forward"):
+        check(out[key]["over_budget"] <= 1.0, f"seamless {key}: "
+              f"{out[key]['over_budget']:.3g} of the bf16 budget {noise}")
+    for name, f in out["faults"].items():
+        check(f["over_budget"] > 1.0, f"seamless: the bf16 budget passes "
+              f"the planted fault '{name}' ({f['over_budget']:.3g} of it)")
+    return out
+
+
+def encdec_records(torch, F, CB, FL, DA, model, lp, frames,
+                   cache_len: int, seed: int) -> list:
+    """Phase 16 (b): flash at the encoder's and the decoder's layer-0
+    inputs and decode_attention at the first decode step's, from a
+    kernel-path prefill of token ids drawn over the vocab and the served
+    frames, each against its plain version with phase 6's planted
+    faults."""
+    cfg = model.cfg
+    batch = {"tokens": random_prompts(torch, cfg.vocab,
+                                      seed + ENCDEC_RECORD_SEED),
+             "enc_embeds": frames}
+    with Capture(FL, "flash_attention") as fcap:
+        logits, caches = model.prefill(lp, batch, cache_len=cache_len)
+    with CaptureFirst(DA, "decode_attention") as dcap:
+        model.decode_step(lp, logits.argmax(-1), caches, SERVE_PROMPT)
+    del logits, caches
+    check(len(fcap.calls) == cfg.enc_layers + cfg.dec_layers,
+          f"seamless prefill called flash {len(fcap.calls)} times")
+    records = []
+    for (args, kw), part, s in (
+            (fcap.calls[0], "encoder", frames.shape[1]),
+            (fcap.calls[cfg.enc_layers], "decoder", SERVE_PROMPT)):
+        q, k, v = args
+        causal = part == "decoder"
+        check(kw == {"causal": causal} and tuple(q.shape) == tuple(k.shape)
+              == (SERVE_BATCH, cfg.n_heads, s, cfg.head_dim_),
+              f"seamless {part} flash {tuple(q.shape)}, {kw}")
+        records.append(flash_record(
+            torch, F, FL, q, k, v, causal,
+            f"flash_attention_mma[{ENCDEC_ARCH} {part}]", faults=True))
+    del fcap, q, k, v, args
+    q, k, v, lengths = dcap.calls[0][0]
+    check(tuple(k.shape) == (SERVE_BATCH, cfg.n_kv, cache_len,
+                             cfg.head_dim_)
+          and bool((lengths == SERVE_PROMPT + 1).all()),
+          f"seamless cache {tuple(k.shape)}, lengths {lengths.tolist()}")
+    records.append(decode_record(torch, F, CB, DA, q, k, v, lengths,
+                                 f"decode_attention[{ENCDEC_ARCH}]"))
+    return records
+
+
+def encdec_phase(torch, seed: int) -> list:
+    """Phase 16: seamless-m4t-large-v2 at full width and depth from the
+    seed (each stacked layer weight at its own fan-in), its f32 blockwise
+    prefill for the budget, then (a) served B 8 x 2048 + 32 greedy tokens
+    through ``serve_llm.generate`` with the kernels' counts reset before
+    and read after, (c) :func:`encdec_gate`, (b) :func:`encdec_records`;
+    returns the kernel records with the serving run's launches."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get
+    from repro_torch.kernels import cuda_build as CB
+    from repro_torch.kernels.decode_attention import kernel as DA
+    from repro_torch.kernels.flash_attention import kernel as FL
+    from repro_torch.launch import serve_llm
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+    from repro_torch.models import param as PM
+    from repro_torch.models.modeling import Model, enc_len_of
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get(ENCDEC_ARCH), attn_impl="pallas")
+    model = Model(cfg)
+    params = model.init(seed)
+    scale = {t: per_matrix_scale(torch, cfg, params[t])
+             for t in ("enc_layers", "dec_layers")}
+    lp = PM.cast_compute(params, cfg.compute_dtype)
+    enc_len = enc_len_of(cfg, SERVE_PROMPT)
+    cache_len = SERVE_PROMPT + SERVE_GEN
+    batch = {"tokens": torch.as_tensor(serve_llm.synthetic_prompts(
+                 SERVE_BATCH, SERVE_PROMPT, cfg.vocab), device="cuda"),
+             "enc_embeds": serve_llm.audio_frames(
+                 cfg, SERVE_BATCH, enc_len, seed + 1, "cuda")}
+    # the budget's f32 side first: the f32 masters are freed before serving
+    exact = Model(dataclasses.replace(
+        cfg, attn_impl="blockwise", compute_dtype=torch.float32)).prefill(
+        params, batch, cache_len=cache_len)[0]
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {"arch": ENCDEC_ARCH, "params": model.n_params(),
+           "enc_len": enc_len, "per_matrix_scale": scale,
+           "init_and_f32_prefill_s": time.perf_counter() - t0,
+           "resident_gb": torch.cuda.memory_allocated() / 1e9}
+
+    # (a) serving, the kernels' counts reset just before and read after
+    kw = dict(reduced=False, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+              params=lp, attn_impl="pallas", seed=seed)
+    serve_llm.generate(ENCDEC_ARCH, gen=2, **kw)             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_counts(FL, DA)
+    res = serve_llm.generate(ENCDEC_ARCH, gen=SERVE_GEN, return_logits=True,
+                             **kw)
+    torch.cuda.synchronize()
+    out["launches"] = attention_counts(FL, DA)
+    st = res["stats"]
+    out.update(prefill_ms=st.prefill_s * 1e3, decode_ms=st.decode_s * 1e3,
+               decode_tokens_per_s=st.tokens_per_s,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    v = cfg.padded_vocab
+    check(tuple(res["prefill_logits"].shape) == (SERVE_BATCH, v)
+          and tuple(res["decode_logits"].shape) == (SERVE_BATCH, SERVE_GEN,
+                                                    v)
+          and bool(torch.isfinite(res["prefill_logits"]).all())
+          and bool(torch.isfinite(res["decode_logits"]).all()),
+          "seamless serving: logits of the wrong shape or not finite")
+    want = {"flash_attention_mma": cfg.enc_layers + cfg.dec_layers,
+            "flash_attention_cuda_cores": 0,
+            "decode_attention": cfg.dec_layers * SERVE_GEN}
+    check(out["launches"] == want, f"seamless serving launched "
+          f"{out['launches']}, not {want}")
+    log(f"[encdec] serving {json.dumps(out)}")
+
+    # (c) the model gate, (b) the kernels at the path's shapes
+    gate = encdec_gate(torch, serve_llm, ED, L, Model, model, lp, batch,
+                       res, exact, cache_len, seed)
+    del res, exact
+    torch.cuda.empty_cache()
+    records = encdec_records(torch, F, CB, FL, DA, model, lp,
+                             batch["enc_embeds"], cache_len, seed)
+    for r in records:
+        r["launches"] = out["launches"][r["name"].split("[")[0]]
+    del lp, batch
+    torch.cuda.empty_cache()
+    log(f"[encdec] phase 16 took {time.perf_counter() - t0:.1f} s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"prefill vs blockwise {json.dumps(gate['prefill_vs_blockwise'])}")
     return records
 
 
@@ -4061,8 +4317,11 @@ def run(sf: float, seed: int) -> int:
     train_phase(torch, seed)
     torch.cuda.empty_cache()
     moe_records = moe_phase(torch, seed)
+    torch.cuda.empty_cache()
+    encdec_recs = encdec_phase(torch, seed)
     log(f"[summary] total {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": records + lm_records + moe_records}))
+    print(json.dumps({"kernels": records + lm_records + moe_records
+                      + encdec_recs}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,13 +6,21 @@
         --attn-impl pallas --batch 8 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --full \
         --arch olmoe-1b-7b --attn-impl pallas --batch 8 --prompt-len 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve_llm --full \
+        --arch seamless-m4t-large-v2 --attn-impl pallas --batch 8 \
+        --prompt-len 2048 --gen 32
 
 The same synthetic prompts and greedy loop as the JAX package's
-``serve_llm``, for every ported ``--arch``.  A vision config's prompts
-follow its ``frontend_len`` patch embeddings (the frontend is a stub in
-both packages: the JAX package feeds zeros, this one a seeded normal
-prefix at the token embeddings' scale), and decoding starts after prefix
-and prompt.  It runs on the GPU unless ``device="cpu"`` is passed.  Unlike the reference's ``--reduced``, which
+``serve_llm``, for every ported ``--arch``.  The modality frontends are
+stubs in both packages, and where the JAX package feeds zeros this one
+feeds seeded normals at the token embeddings' scale: a vision config's
+prompts follow its ``frontend_len`` patch embeddings
+(:func:`vision_prefix`), and decoding starts after prefix and prompt; an
+encdec config encodes ``enc_len_of(prompt_len)`` frame embeddings
+(:func:`audio_frames`).  Zero frames would make the encoder's output
+zero after its first RMSNorm, and with it the cross attention's values:
+neither would reach the completions.  It runs on the GPU unless
+``device="cpu"`` is passed.  Unlike the reference's ``--reduced``, which
 cannot be turned off, ``--full`` serves the full-width config.
 """
 from __future__ import annotations
@@ -30,7 +38,7 @@ from repro_torch.data import tokenizer
 from repro_torch.distributed.shardings import null_ctx
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import param as PM
-from repro_torch.models.modeling import Model
+from repro_torch.models.modeling import Model, enc_len_of
 
 
 @dataclasses.dataclass
@@ -66,13 +74,24 @@ def _sync(dev: torch.device) -> None:
 PREFIX_STD = 0.02
 
 
+def _seeded_embeds(cfg, batch: int, rows: int, seed: int, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(batch, rows, cfg.d_model, generator=gen,
+                    device=device) * PREFIX_STD
+    return x.to(cfg.compute_dtype)
+
+
 def vision_prefix(cfg, batch: int, seed: int, device) -> torch.Tensor:
     """A seeded stand-in for ``batch`` images' patch embeddings
     ``[B, frontend_len, d_model]`` in the compute dtype."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn(batch, cfg.frontend_len, cfg.d_model, generator=gen,
-                    device=device) * PREFIX_STD
-    return x.to(cfg.compute_dtype)
+    return _seeded_embeds(cfg, batch, cfg.frontend_len, seed, device)
+
+
+def audio_frames(cfg, batch: int, enc_len: int, seed: int,
+                 device) -> torch.Tensor:
+    """A seeded stand-in for ``batch`` utterances' frame embeddings
+    ``[B, enc_len, d_model]`` in the compute dtype."""
+    return _seeded_embeds(cfg, batch, enc_len, seed, device)
 
 
 def generate(arch: str = "qwen3-0.6b", reduced: bool = True,
@@ -84,8 +103,10 @@ def generate(arch: str = "qwen3-0.6b", reduced: bool = True,
     """Prefill ``batch`` synthetic prompts and decode ``gen`` tokens
     greedily.  ``params`` (e.g. carried over from the JAX package) replace
     the weights drawn from ``seed``; ``attn_impl`` overrides the config's,
-    ``n_layers`` its depth.  A vision config's prompts follow
-    :func:`vision_prefix` of ``seed + 1``.
+    ``n_layers`` its depth (not an encdec config's: it names neither the
+    encoder's nor the decoder's).  A vision config's prompts follow
+    :func:`vision_prefix` of ``seed + 1``; an encdec config encodes
+    :func:`audio_frames` of ``seed + 1``.
     Returns ``completions`` [B, gen], ``stats`` and, with
     ``return_logits``, ``prefill_logits`` [B, V] and ``decode_logits``
     [B, gen, V] (f32)."""
@@ -97,6 +118,9 @@ def generate(arch: str = "qwen3-0.6b", reduced: bool = True,
     if attn_impl is not None:
         cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
     if n_layers is not None:
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.name}: n_layers names no encoder or "
+                             f"decoder depth (enc_layers, dec_layers)")
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     sc = null_ctx()
     model = Model(cfg, device)
@@ -114,6 +138,9 @@ def generate(arch: str = "qwen3-0.6b", reduced: bool = True,
     if cfg.frontend == "vision":
         pf_batch["prefix"] = vision_prefix(cfg, batch, seed + 1, dev)
         base += cfg.frontend_len
+    if cfg.family == "encdec":
+        pf_batch["enc_embeds"] = audio_frames(
+            cfg, batch, enc_len_of(cfg, prompt_len), seed + 1, dev)
     cache_len = base + gen
     prefill = make_prefill_step(model, sc, cache_len)
     decode = make_decode_step(model, sc)

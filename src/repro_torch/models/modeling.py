@@ -7,9 +7,15 @@
     logits, aux = m.forward(params, batch)
     logits, caches = m.prefill(params, batch, cache_len=...)
     logits, caches = m.decode_step(params, tokens, caches, length)
+    acaches = m.abstract_caches(batch, cache_len)   # meta tensors
 
-The dense and moe families (``transformer.FAMILIES``); a vision config
-takes its precomputed patch embeddings as ``batch["prefix"]``.  ``loss``
+The families in :data:`FAMILIES`: the decoder-only ones are assembled
+in ``models/transformer.py``, encdec in ``models/encdec.py``, and
+``Model`` calls the same entry points of either; another family raises
+"not yet ported".  A vision config takes its precomputed patch
+embeddings as ``batch["prefix"]``, an encdec config its frame embeddings
+(the audio frontend's stub, :func:`enc_len_of` frames) as
+``batch["enc_embeds"]``.  ``loss``
 is what the train step differentiates (``launch/steps.py``);
 ``forward``, ``prefill`` and ``decode_step`` take no gradient.
 ``input_specs(cfg, shape)`` gives the ``meta`` stand-ins of every model
@@ -26,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed.shardings import ShardingCtx, null_ctx
+from repro_torch.models import encdec as ED
 from repro_torch.models import param as PM
 from repro_torch.models import transformer as TF
 
@@ -44,18 +51,30 @@ def enc_len_of(cfg: ArchConfig, seq_len: int) -> int:
     return max(seq_len // 4, 8)
 
 
+#: The families the port runs, each with the module that assembles it.
+FAMILIES = {"dense": TF, "moe": TF, "encdec": ED}
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ArchConfig
     device: Union[str, torch.device] = "cuda"
 
     def __post_init__(self):
-        TF.require_ported(self.cfg)
+        if self.cfg.family not in FAMILIES:
+            raise NotImplementedError(
+                f"{self.cfg.name}: family {self.cfg.family!r} is not yet "
+                f"ported to repro_torch (ported: {', '.join(FAMILIES)})")
         self.device = resolve_device(self.device)
 
     @property
+    def _family(self):
+        """The module that assembles this config's family."""
+        return FAMILIES[self.cfg.family]
+
+    @property
     def spec(self) -> Dict:
-        return TF.lm_spec(self.cfg)
+        return self._family.spec(self.cfg)
 
     def init(self, seed: Union[int, torch.Generator] = 0) -> Dict:
         """Parameters drawn from ``seed`` (or a generator on this
@@ -86,32 +105,48 @@ class Model:
         """(loss, metrics).  Differentiable: autograd records it when the
         parameters require grad; wrap a scoring call in
         ``torch.no_grad()``."""
-        return TF.lm_loss(self.cfg, params, batch, sc or null_ctx())
+        return self._family.lm_loss(self.cfg, params, batch,
+                                    sc or null_ctx())
 
     @torch.no_grad()
     def forward(self, params, batch, sc: Optional[ShardingCtx] = None):
-        return TF.forward(self.cfg, params, batch, sc or null_ctx())
+        return self._family.forward(self.cfg, params, batch,
+                                    sc or null_ctx())
 
     @torch.no_grad()
     def prefill(self, params, batch, sc=None, cache_len: int = None):
         if cache_len is None:
             cache_len = batch["tokens"].shape[1]
-        return TF.prefill(self.cfg, params, batch, sc or null_ctx(),
-                          cache_len)
+        return self._family.prefill(self.cfg, params, batch,
+                                    sc or null_ctx(), cache_len)
 
     @torch.no_grad()
     def decode_step(self, params, tokens, caches, length, sc=None):
-        return TF.decode_step(self.cfg, params, tokens, caches, length,
-                              sc or null_ctx())
+        return self._family.decode_step(self.cfg, params, tokens, caches,
+                                        length, sc or null_ctx())
 
-    def cache_spec(self, batch: int, cache_len: int) -> Dict:
-        return TF.cache_spec(self.cfg, batch, cache_len)
+    def cache_spec(self, batch: int, cache_len: int,
+                   enc_len: int = 0) -> Dict:
+        """Decode caches of ``cache_len`` positions; an encdec config's
+        also hold cross K/V of ``enc_len`` frames (by default
+        :func:`enc_len_of` ``cache_len``, as in the JAX package; the
+        caches ``prefill`` returns hold the encoder's own length)."""
+        return self._family.cache_spec(
+            self.cfg, batch, cache_len,
+            enc_len or enc_len_of(self.cfg, cache_len))
 
-    def init_caches(self, batch: int, cache_len: int) -> Dict:
+    def abstract_caches(self, batch: int, cache_len: int,
+                        enc_len: int = 0) -> Dict:
+        """:meth:`cache_spec` as ``meta`` tensors (no storage)."""
+        return PM.abstract_params(self.cache_spec(batch, cache_len,
+                                                  enc_len))
+
+    def init_caches(self, batch: int, cache_len: int,
+                    enc_len: int = 0) -> Dict:
         return PM.tree_map(
             lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                   device=self.device),
-            self.cache_spec(batch, cache_len))
+            self.cache_spec(batch, cache_len, enc_len))
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +161,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig
 
     * train:   tokens + labels (+ modality extras)
     * prefill: tokens (+ extras)
-    * decode:  single-token batch; caches come from ``Model.cache_spec``.
+    * decode:  single-token batch; caches come from ``Model.cache_spec``
+      (or ``Model.abstract_caches``).
     """
     b, s = shape.global_batch, shape.seq_len
     i32 = torch.int32

@@ -2,6 +2,7 @@
 
 One parameter tree + entry points per model:
 
+* ``spec(cfg)`` -- the parameter tree's specs,
 * ``forward(cfg, params, batch, sc)``  -- full-sequence logits,
 * ``lm_loss(cfg, params, batch, sc)``  -- forward + masked CE; the train
   step (``launch/steps.py``) differentiates it,
@@ -18,8 +19,9 @@ keeps only each layer's input for the backward pass and recomputes the
 rest, ``"dots"`` also keeps the outputs of the products without batch
 dimensions, ``"none"`` keeps everything.  A moe layer's aux loss sums
 over the layers into ``forward``'s second output, and ``lm_loss`` adds
-0.01 of it.  Other families (ssm, hybrid, encdec) raise "not yet
-ported".
+0.01 of it.  Other families raise "not yet ported" here:
+``modeling.Model`` sends encdec to ``models/encdec.py``, which builds
+it from this module's pieces.
 """
 from __future__ import annotations
 
@@ -60,6 +62,17 @@ def layer_params(stacked, i: int):
     return tree_map(lambda a: a[i], stacked)
 
 
+def depth(stacked) -> int:
+    """The layers of a stacked tree (its leaves' leading extent)."""
+    return PM.tree_items(stacked)[0][1].shape[0]
+
+
+def positions_of(x: torch.Tensor) -> torch.Tensor:
+    """RoPE positions 0..S-1 for each row of ``x`` [B, S, ...]."""
+    b, s = x.shape[0], x.shape[1]
+    return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+
 def _attn_cfg(cfg: ArchConfig, window: Optional[int] = None) -> L.AttnConfig:
     return L.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
@@ -91,7 +104,7 @@ def _layer_spec(cfg: ArchConfig) -> Dict:
     return spec
 
 
-def lm_spec(cfg: ArchConfig) -> Dict:
+def spec(cfg: ArchConfig) -> Dict:
     require_ported(cfg)
     dt = cfg.param_dtype
     return {
@@ -158,10 +171,6 @@ def _embed_tokens(cfg, params, tokens, sc: ShardingCtx):
     return sc.constrain(x, "batch", "seq", "act_embed")
 
 
-def _n_layers(params) -> int:
-    return PM.tree_items(params["layers"])[0][1].shape[0]
-
-
 def _head(cfg, params, x):
     return torch.einsum("bsd,dv->bsv", x,
                         params["head"].to(cfg.compute_dtype))
@@ -183,11 +192,9 @@ def forward(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx
     prefix = batch.get("prefix")          # vision stub: [B,P,d]
     if prefix is not None:
         x = torch.cat([prefix.to(cfg.compute_dtype), x], dim=1)
-    b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
+    positions = positions_of(x)
     aux_total = torch.zeros((), dtype=F32, device=x.device)
-    for i in range(_n_layers(params)):
+    for i in range(depth(params["layers"])):
         lp = layer_params(params["layers"], i)
         x, a = _remat(cfg, lambda xx, lp=lp: _block(
             cfg, lp, xx, positions, sc))(x)
@@ -200,6 +207,13 @@ def forward(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx
 def lm_loss(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx
             ) -> Tuple[torch.Tensor, Dict]:
     logits, aux = forward(cfg, params, batch, sc)
+    return loss_of(logits, aux, batch)
+
+
+def loss_of(logits: torch.Tensor, aux: torch.Tensor, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Masked CE of ``logits`` against ``batch["labels"]`` (a vision
+    prefix's positions cut off) plus 0.01 of the aux loss."""
     labels = batch["labels"]
     prefix = batch.get("prefix")
     if prefix is not None:
@@ -223,7 +237,11 @@ def lm_loss(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx
 # ---------------------------------------------------------------------------
 
 
-def cache_spec(cfg: ArchConfig, batch: int, cache_len: int) -> Dict:
+def cache_spec(cfg: ArchConfig, batch: int, cache_len: int,
+               enc_len: int = 0) -> Dict:
+    """Each layer's K/V cache of ``cache_len`` positions.  ``enc_len``
+    is unused (no encoder): it keeps the signature of
+    ``encdec.cache_spec``, which ``modeling.Model`` dispatches alike."""
     require_ported(cfg)
     one = L.attention_cache_spec(_attn_cfg(cfg), batch, cache_len,
                                  cfg.compute_dtype)
@@ -239,12 +257,10 @@ def prefill(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx,
     prefix = batch.get("prefix")
     if prefix is not None:
         x = torch.cat([prefix.to(cfg.compute_dtype), x], dim=1)
-    b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
+    positions = positions_of(x)
     acfg = _attn_cfg(cfg)
     ks, vs = [], []
-    for i in range(_n_layers(params)):
+    for i in range(depth(params["layers"])):
         lp = layer_params(params["layers"], i)
         a, cache = L.attention_prefill(lp["attn"], acfg,
                                        L.rms_norm(lp["ln1"], x), positions,
@@ -267,7 +283,7 @@ def decode_step(cfg: ArchConfig, params, tokens: torch.Tensor,
     x = params["embed"][tokens[:, None]].to(cfg.compute_dtype)
     acfg = _attn_cfg(cfg)
     kc, vc = caches["layers"]["k"], caches["layers"]["v"]
-    for i in range(_n_layers(params)):
+    for i in range(depth(params["layers"])):
         lp = layer_params(params["layers"], i)
         a, _ = L.attention_decode(lp["attn"], acfg,
                                   L.rms_norm(lp["ln1"], x),

@@ -1096,3 +1096,65 @@ def test_attention_kernels_refuse_autograd_on_card(card):
             for k_, v in _lm_batch(128, 2).items()})
     assert FL.launches - before == cfg.n_layers
     assert bool(torch.isfinite(loss))
+
+
+# ---------------------------------------------------------------------------
+# the encdec family on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [8, 63, 65, 512, 520])
+def test_flash_encoder_shape_matches_plain(card, s):
+    """The encoder's attention: the tensor-core kernel non-causal at D 64
+    and group 1 (seamless's 16 MHA heads of 64), at encoder lengths
+    ``max(S // 4, 8)`` on and off the 64-row tile (ragged K/V rows are
+    zero-filled, and a non-causal row reads every key)."""
+    gen = torch.Generator(device=card).manual_seed(s)
+    q, k, v = (_randn(gen, (2, 16, s, 64), torch.bfloat16, card)
+               for _ in range(3))
+    before = FL.launches_mma
+    got = FL.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert FL.launches_mma == before + 1
+    assert_within_rounding(got, FL.flash_attention_plain(q, k, v,
+                                                         causal=False),
+                           torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_at_group_1_d_64(card, dtype):
+    """The decoder's decode step: 16 KV heads, one query head each, D 64,
+    over the serving cache (2048 + 32 positions)."""
+    q, k, v = _decode_inputs(card, dtype, 4, 16, 16, 2080, 64, 2080)
+    lengths = torch.tensor([2049, 2080, 1, 700], dtype=torch.int32,
+                           device=card)
+    before = DA.launches
+    got = DA.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert DA.launches == before + 1
+    assert_within_rounding(got, DA.decode_attention_plain(q, k, v, lengths),
+                           dtype)
+
+
+@pytest.mark.gpu
+def test_encdec_generate_on_card_equals_blockwise(card):
+    """Greedy serving of the reduced seamless-m4t-large-v2 (f32) under
+    ``pallas`` -- flash in the encoder (non-causal) and the decoder's
+    prefill, decode_attention in decode -- gives the completions of the
+    same run under ``blockwise``, which launches neither kernel."""
+    from repro_torch.launch import serve_llm
+    arch, gen = "seamless-m4t-large-v2", 6
+    cfg = get_arch(arch).reduced()
+    params = Model(cfg, device=card).init(0)
+    kw = dict(batch=2, prompt_len=40, gen=gen, device=card, params=params)
+    before = (FL.launches, DA.launches)
+    got = serve_llm.generate(arch, attn_impl="pallas", **kw)
+    torch.cuda.synchronize()
+    assert (FL.launches - before[0], DA.launches - before[1]) == (
+        cfg.enc_layers + cfg.dec_layers, cfg.dec_layers * gen)
+    before = (FL.launches, DA.launches)
+    want = serve_llm.generate(arch, attn_impl="blockwise", **kw)
+    assert (FL.launches, DA.launches) == before
+    np.testing.assert_array_equal(got["completions"], want["completions"])
