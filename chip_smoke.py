@@ -45,7 +45,10 @@ Phases, in order; any failure exits non-zero:
    ``flash_attention`` on layer 0's q/k/v of the full-width
    ``qwen3-0.6b`` forward -- the tensor-core kernel (B 4 x S 4096, bf16,
    causal; also non-causal, and S 4000, not a multiple of the tile) and
-   the CUDA-core kernel on the same inputs in f32 --, ``decode_attention``
+   the CUDA-core kernel on the same inputs in f32, and in bf16 at
+   recurrentgemma-2b's layer shape on inputs from the seed (B 8 x H 10
+   (Hkv 1) x S 2048 x D 256, causal; its rolled-heads fault rolls the
+   batch rows) --, ``decode_attention``
    on the serving path's layer-0 cache after prefill (B 8, 2048 + 1
    positions) and at ``decode_32k``'s length (B 8, S 32 768, lengths from
    the seed); each held to one rounding of its plain version's output
@@ -224,10 +227,15 @@ Phases, in order; any failure exits non-zero:
    part against planted faults; beside part 3, the share of route sets
    that differ with SDPA in flash's place); (b) ``decode_attention``
    against its plain version at groups 9 (D 128) and 10 (D 256), with
-   planted faults; (c) ``starcoder2-7b`` and ``pixtral-12b`` (with its
-   seeded 256-row prefix) at full width with 4 layers, B 8 x 2048 and 4
-   decode steps, the prefill logits against the blockwise path's within
-   the bf16 budget, flash at its shape.  Its lines are tagged ``[moe]``;
+   planted faults; (c) ``starcoder2-7b`` (D 128) and ``pixtral-12b`` (D
+   160, with its seeded 256-row prefix) at full width with 4 layers, B 8
+   x 2048 and 4 decode steps, both with flash on the tensor cores (4
+   launches each, none on the CUDA cores), the prefill logits against
+   the blockwise path's within the bf16 budget, flash at its shape; (d)
+   flash on the tensor cores at pixtral's shape (B 8 x H 32 (Hkv 8) x S
+   2304 x D 160, causal) on inputs from the seed, with phase 6's planted
+   faults, and its registers and spill bytes.  Its lines are tagged
+   ``[moe]``;
 16. the encdec family, after phase 15 (its state freed):
    ``seamless-m4t-large-v2`` at full width and depth from the seed (12
    encoder and 12 decoder layers, each stacked weight at its own
@@ -1173,7 +1181,9 @@ def flash_record(torch, F, FL, q, k, v, causal: bool, label: str,
              if kernel == "mma" else {})
     if faults:
         # wrong output scale, wrong softmax scale, each query head on the
-        # wrong KV head, the last K tile dropped
+        # wrong KV head (of the next batch row where there is one KV
+        # head), the last K tile dropped
+        roll = 1 if k.shape[1] > 1 else 0
         tail = FL.flash_attention_core_plain(
             q.reshape(b * h, s, d), *[t[:, :, :s - 64].reshape(-1, s - 64, d)
                                       for t in (k, v)], causal=False)
@@ -1182,7 +1192,8 @@ def flash_record(torch, F, FL, q, k, v, causal: bool, label: str,
             "softmax scale x 0.9": FL.flash_attention(
                 q, k, v, causal=causal, scale=0.9 * d ** -0.5),
             "KV heads rolled by one": FL.flash_attention_plain(
-                q, k.roll(1, dims=1), v.roll(1, dims=1), causal=causal),
+                q, k.roll(1, dims=roll), v.roll(1, dims=roll),
+                causal=causal),
             **({} if causal else
                {"last K tile dropped": tail.reshape(q.shape)})}, label)
         del tail
@@ -1207,6 +1218,21 @@ def flash_record(torch, F, FL, q, k, v, causal: bool, label: str,
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True)))
     log("[kernel] " + json.dumps(rec))
+    return rec
+
+
+def seeded_flash_record(torch, F, FL, c: dict, seed: int, label: str):
+    """flash_record with phase 6's planted faults at the head layout ``c``
+    (b, h, hkv, s, d), bf16, causal, on normal inputs from the seed,
+    beside the kernel's resources where it is the tensor-core one."""
+    g = torch.Generator(device="cuda").manual_seed(seed + c["d"])
+    q, k, v = (torch.randn(c["b"], h, c["s"], c["d"], generator=g,
+                           device="cuda").bfloat16()
+               for h in (c["h"], c["hkv"], c["hkv"]))
+    rec = flash_record(torch, F, FL, q, k, v, True, label, faults=True)
+    if FL.route(q.dtype, c["d"]) == "mma":
+        rec["resources"] = FL.mma_resources()[c["d"]]
+        log(f"[kernel] {label}: resources {json.dumps(rec['resources'])}")
     return rec
 
 
@@ -1356,11 +1382,17 @@ def lm_kernel_checks(torch, F, Model, serve_llm, FL, DA, cfg, params,
     records.append(flash_record(
         torch, F, FL, *[t[:, :, :s2].contiguous() for t in (q, k, v)],
         True, f"flash_attention_mma[S={s2}]"))
-    # the CUDA-core kernel, which the route keeps for f32 (and other D)
+    # the CUDA-core kernel, which the route keeps for f32 and for bf16 at
+    # the other widths: recurrentgemma-2b's layer (10 / 1 heads, D 256)
     records.append(flash_record(
         torch, F, FL, *[t.float() for t in (q, k, v)], True,
         "flash_attention_cuda_cores[f32]", faults=True))
     del q, k, v, cap
+    c = LARGE_GROUPS["recurrentgemma-2b"]
+    records.append(seeded_flash_record(
+        torch, F, FL, dict(b=SERVE_BATCH, h=c["hkv"] * c["group"],
+                           hkv=c["hkv"], s=SERVE_PROMPT, d=c["d"]),
+        seed, "flash_attention_cuda_cores[bf16 D 256, recurrentgemma-2b]"))
 
     with CaptureFirst(DA, "decode_attention") as cap:
         serve_llm.generate(LM_ARCH, reduced=False, batch=SERVE_BATCH,
@@ -1854,8 +1886,14 @@ LARGE_GROUPS = {"starcoder2-7b": dict(hkv=4, group=9, d=128),
 #: (c) dense configs served at full width, depth cut to 4 layers (all of
 #: them would not leave room beside the phase's other work: pixtral's 40
 #: layers are 49 GB of f32 weights), B 8 x 2048 (+ pixtral's 256-row
-#: prefix) and 4 decode steps
+#: prefix) and 4 decode steps; both take flash on the tensor cores
+#: (starcoder2-7b at D 128, pixtral-12b at D 160)
 DEPTH_CUT, DEPTH_GEN = {"starcoder2-7b": 4, "pixtral-12b": 4}, 4
+#: (d) flash at this config's layer-0 serving shape (its heads, B 8 x its
+#: prefix + 2048) on seeded inputs: the served prompts are mostly padding,
+#: on which a planted fault can stay within one rounding; seeded normal
+#: inputs let each one show
+SEEDED_FLASH_ARCH = "pixtral-12b"
 #: the MoE gate, part 2: per token, the kernel path's logits against the
 #: plain path's (the same model with flash's plain version) within four
 #: bf16 roundings of the row's largest logit (|d| <= 4 x 2^-7 max|want|)
@@ -2339,8 +2377,9 @@ def depth_cut_serving(torch, F, FL, DA, PM, Model, serve_llm, arch: str,
            "prefill_ms": st.prefill_s * 1e3, "decode_ms": st.decode_s * 1e3,
            "decode_tokens_per_s": st.tokens_per_s}
     route = FL.route(cfg.compute_dtype, cfg.head_dim_)
-    want = {"flash_attention_mma": n if route == "mma" else 0,
-            "flash_attention_cuda_cores": n if route != "mma" else 0,
+    check(route == "mma", f"{arch}: bf16 at D {cfg.head_dim_} takes the "
+          f"{route} kernel, not the tensor cores")
+    want = {"flash_attention_mma": n, "flash_attention_cuda_cores": 0,
             "decode_attention": n * DEPTH_GEN}
     check(out["launches"] == want, f"{arch}: launched {out['launches']}, "
           f"not {want}")
@@ -2371,6 +2410,7 @@ def depth_cut_serving(torch, F, FL, DA, PM, Model, serve_llm, arch: str,
     q, k, v = fcap.calls[0][0][:3]
     label = f"flash_attention_{route}[{arch}]"
     record = flash_record(torch, F, FL, q, k, v, True, label)
+    record["resources"] = FL.mma_resources()[cfg.head_dim_]
     del q, k, v, fcap
     torch.cuda.empty_cache()
     log(f"[moe] {arch} {json.dumps(out)}")
@@ -2410,6 +2450,13 @@ def moe_phase(torch, seed: int) -> list:
         records.append(rec)
         for k, n in out["launches"].items():
             launches[k] += n
+    from repro_torch.configs import get
+    cfg = get(SEEDED_FLASH_ARCH)
+    records.append(seeded_flash_record(
+        torch, F, FL, dict(b=SERVE_BATCH, h=cfg.n_heads, hkv=cfg.n_kv,
+                           s=SERVE_PROMPT + cfg.frontend_len,
+                           d=cfg.head_dim_),
+        seed, f"flash_attention_mma[{SEEDED_FLASH_ARCH}, seeded]"))
     launches["flash_attention"] = (launches["flash_attention_mma"]
                                    + launches["flash_attention_cuda_cores"])
     for r in records:

@@ -1,12 +1,13 @@
 // flash_attention on the CUDA cores: blocked online-softmax attention with
-// native GQA, for f32 and for bf16 at head widths other than 64 and 128.
+// native GQA, for f32 and for bf16 at head widths other than 64, 128 and
+// 160.
 //
 // Replaces the Pallas kernel flash_attention (src/repro/kernels/
 // flash_attention/kernel.py:73), whose grid walks (head, q block, k block)
 // in order and carries the softmax state in VMEM scratch between k steps.
 // The wrapper (kernels/flash_attention/kernel.py, route()) sends bf16 at
-// D 64 and 128 to the tensor-core kernel of flash_attention_mma.cuh and
-// everything else here.  One thread block owns one (query head, 64-row Q
+// D 64, 128 and 160 to the tensor-core kernel of flash_attention_mma.cuh
+// and everything else here.  One thread block owns one (query head, 64-row Q
 // tile) and walks the K/V tiles itself; blocks run in any order.
 //
 //   q [BH, S, D], k/v [BHkv, S, D] (float or bf16), o [BH, S, D] in q's type.

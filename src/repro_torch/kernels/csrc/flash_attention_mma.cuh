@@ -2,9 +2,9 @@
 //
 // Replaces the Pallas kernel flash_attention (src/repro/kernels/
 // flash_attention/kernel.py:73, pallas_call at :90) for bf16 inputs with a
-// head width of 64 or 128.  The wrapper (kernels/flash_attention/kernel.py,
-// route()) sends every other dtype or width to the CUDA-core kernel of
-// flash_attention.cuh; the two compute the same function.
+// head width of 64, 128 or 160.  The wrapper (kernels/flash_attention/
+// kernel.py, route()) sends every other dtype or width to the CUDA-core
+// kernel of flash_attention.cuh; the two compute the same function.
 //
 //   q [BH, S, D], k/v [BHkv, S, D] bf16, o [BH, S, D] bf16.
 //   The KV head of query head bh is bh / group: K and V are never repeated.
@@ -34,9 +34,17 @@
 // * K/V tiles go through a ring of 2 stages in shared memory, filled with
 //   16-byte cp.async.cg copies; tile j+1 loads while tile j computes.
 //   Rows at or beyond S are zero-filled (src-size 0), so no thread reads
-//   past the tensor.  A shared row is D * 2 bytes (128 or 256); its
-//   16-byte chunk c of row r sits at chunk c ^ (r % 8), so the 8 row
-//   addresses of one ldmatrix matrix fall on 8 distinct bank groups.
+//   past the tensor.  Every ldmatrix matrix reads one 16-byte chunk of 8
+//   consecutive rows, and its 8 row addresses fall on 8 distinct bank
+//   groups (16-byte units mod 128 bytes) by the row layout (fm_row):
+//   at D 64 and 128 a shared row is D * 2 bytes (8 or 16 chunks) and
+//   chunk c of row r sits at chunk c ^ (r % 8); at D 160 (20 chunks,
+//   where that XOR would reach chunks 16..23, past the row) a row is
+//   padded to 21 chunks (168 elements, 336 bytes), and since 21 is odd,
+//   8 consecutive rows at one chunk land on 8 distinct bank groups with
+//   no XOR.  Global memory keeps its [S, D] rows; only shared rows are
+//   padded.  kernels/flash_attention/kernel.py mirrors the layout
+//   (mma_smem_offset, mma_smem_bytes) for the CPU tests.
 // * The softmax runs in the exp2 domain: scale * log2(e) is one constant
 //   and every exponential is one ex2.approx.  Row max and row sum live in
 //   the quad of lanes that share a row (shfl_xor 1 and 2); l is summed
@@ -50,9 +58,11 @@
 //   row below S sees key 0; a row past S (the last tile's padding, never
 //   stored) sees the keys below S.
 //
-// Shared memory: Q 64 x D, then 2 stages of K and V 64 x D, all bf16:
-// 40 KB at D 64, 80 KB at D 128 (opt-in above 48 KB).  The unit builds
-// with --fmad=false; it has no multiply-add outside the tensor cores.
+// Shared memory: Q 64 rows, then 2 stages of K and V 64 rows, all bf16
+// rows of fm_row<D>::stride elements: 40 KB at D 64, 80 KB at D 128 and
+// 105 KB (107,520 bytes) at D 160 (opt-in above 48 KB; two blocks fit an
+// SM at each).  The unit builds with --fmad=false; it has no
+// multiply-add outside the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,10 +79,24 @@ __device__ __forceinline__ uint32_t fm_smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Element offset of (row, 16-byte chunk) in a swizzled [rows][D] tile.
+// The shared row layout at head width D: a row of D / 8 16-byte chunks
+// XOR-swizzles them by row % 8 when that count is a multiple of 8 (D 64,
+// 128); otherwise it is padded to an odd number of chunks (D 160: 21)
+// and left unswizzled.
+template <int D>
+struct fm_row {
+  static constexpr int chunks = D / 8;
+  static constexpr bool swizzle = chunks % 8 == 0;
+  static constexpr int stride = (swizzle ? chunks : (chunks | 1)) * 8;
+};
+
+// Element offset of (row, 16-byte chunk) in a shared [rows][D] tile.
 template <int D>
 __device__ __forceinline__ int fm_swz(int row, int chunk) {
-  return row * D + ((chunk ^ (row & 7)) << 3);
+  if constexpr (fm_row<D>::swizzle)
+    return row * D + ((chunk ^ (row & 7)) << 3);
+  else
+    return row * fm_row<D>::stride + (chunk << 3);
 }
 
 __device__ __forceinline__ void fm_cp_async16(uint32_t dst, const void* src,
@@ -134,7 +158,7 @@ __device__ __forceinline__ uint32_t fm_pack_rest(float lo, float hi,
 }
 
 // cp.async one [64][D] bf16 tile (rows row0.. of a [S][D] slab) into a
-// swizzled shared tile; rows at or beyond S are zero-filled.
+// shared tile laid out by fm_row<D>; rows at or beyond S are zero-filled.
 template <int D>
 __device__ __forceinline__ void fm_load_tile(__nv_bfloat16* dst,
                                              const __nv_bfloat16* src,
@@ -161,10 +185,11 @@ flare_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = D / 16;     // k16 steps of Q K^T; n8 tiles of O / 2
   constexpr int NO = D / 8;      // n8 tiles of O
   constexpr int NS = FM_BK / 8;  // n8 tiles of S
+  constexpr int RS = fm_row<D>::stride;  // shared row stride (elements)
   extern __shared__ __align__(128) unsigned char fm_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(fm_smem);
-  __nv_bfloat16* ks = qs + FM_BQ * D;          // [2][64][D]
-  __nv_bfloat16* vs = ks + 2 * FM_BK * D;      // [2][64][D]
+  __nv_bfloat16* ks = qs + FM_BQ * RS;         // [2][64][RS]
+  __nv_bfloat16* vs = ks + 2 * FM_BK * RS;     // [2][64][RS]
 
   const int bh = blockIdx.y;
   const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
@@ -194,8 +219,8 @@ flare_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int st = j & 1;
     if (j + 1 < n_tiles) {
       const int nst = (j + 1) & 1;
-      fm_load_tile<D>(ks + nst * FM_BK * D, kb, (j + 1) * FM_BK, S);
-      fm_load_tile<D>(vs + nst * FM_BK * D, vb, (j + 1) * FM_BK, S);
+      fm_load_tile<D>(ks + nst * FM_BK * RS, kb, (j + 1) * FM_BK, S);
+      fm_load_tile<D>(vs + nst * FM_BK * RS, vb, (j + 1) * FM_BK, S);
       fm_cp_commit();
       fm_cp_wait<1>();
     } else {
@@ -210,8 +235,8 @@ flare_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                    fm_smem_addr(qs + fm_swz<D>(r, 2 * kc + (lane >> 4))));
       }
     }
-    const __nv_bfloat16* kt = ks + st * FM_BK * D;
-    const __nv_bfloat16* vt = vs + st * FM_BK * D;
+    const __nv_bfloat16* kt = ks + st * FM_BK * RS;
+    const __nv_bfloat16* vt = vs + st * FM_BK * RS;
     const int k0 = j * FM_BK;
 
     // S = Q K^T for this warp's 16 rows and the tile's 64 keys
@@ -328,7 +353,8 @@ flare_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 static size_t fm_smem_bytes() {
-  return (size_t)(FM_BQ + 4 * FM_BK) * D * sizeof(__nv_bfloat16);
+  return (size_t)(FM_BQ + 4 * FM_BK) * fm_row<D>::stride *
+         sizeof(__nv_bfloat16);
 }
 
 template <int D>
@@ -349,7 +375,7 @@ static int fm_launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// bf16 only; d is 64 or 128.  bh query heads, bhkv KV heads.
+// bf16 only; d is 64, 128 or 160.  bh query heads, bhkv KV heads.
 extern "C" int flare_flash_attention_mma(const void* q, const void* k,
                                          const void* v, void* o, int bh,
                                          int bhkv, int S, int d, int causal,
@@ -361,6 +387,8 @@ extern "C" int flare_flash_attention_mma(const void* q, const void* k,
   if (d == 64) return fm_launch<64>(q, k, v, o, bh, S, group, causal, scale, s);
   if (d == 128)
     return fm_launch<128>(q, k, v, o, bh, S, group, causal, scale, s);
+  if (d == 160)
+    return fm_launch<160>(q, k, v, o, bh, S, group, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -376,6 +404,9 @@ extern "C" int flare_flash_attention_mma_attrs(int d, int* out) {
   } else if (d == 128) {
     e = cudaFuncGetAttributes(&a, flare_flash_mma_kernel<128>);
     dyn = fm_smem_bytes<128>();
+  } else if (d == 160) {
+    e = cudaFuncGetAttributes(&a, flare_flash_mma_kernel<160>);
+    dyn = fm_smem_bytes<160>();
   } else {
     return (int)cudaErrorInvalidValue;
   }

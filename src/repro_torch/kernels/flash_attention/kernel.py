@@ -5,11 +5,12 @@ Replaces the Pallas kernel ``flash_attention`` of
 ``ops.py``) with two CUDA kernels of the same function, chosen by
 :func:`route` from the dtype and the head width alone:
 
-* ``"mma"`` (``csrc/flash_attention_mma.cuh``): bf16 at D 64 or 128, the
-  widths of every bf16 config but pixtral (160) and recurrentgemma (256).
-  Both products run on the tensor cores (``mma.sync`` m16n8k16 bf16, f32
+* ``"mma"`` (``csrc/flash_attention_mma.cuh``): bf16 at D 64, 128 or
+  160, the widths of every bf16 config but recurrentgemma (256).  Both
+  products run on the tensor cores (``mma.sync`` m16n8k16 bf16, f32
   accumulators; P split into bf16 high and low parts, so it keeps f32
-  grade) and K/V tiles stream through shared memory by ``cp.async``;
+  grade) and K/V tiles stream through shared memory by ``cp.async``,
+  in the row layout that :func:`mma_smem_offset` mirrors;
 * ``"cuda_cores"`` (``csrc/flash_attention.cuh``): f32, and bf16 at any
   other D in [16, 256]; the dots run in f32 on the CUDA cores.
 
@@ -46,7 +47,9 @@ NEG_INF = -1e30
 #: The head widths the CUDA-core kernel takes, and those of the
 #: tensor-core kernel (bf16 only).
 MIN_D, MAX_D = 16, 256
-MMA_D = (64, 128)
+MMA_D = (64, 128, 160)
+#: The tensor-core kernel's tiles: Q rows a block, K/V rows a stage.
+MMA_BQ = MMA_BK = 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -61,6 +64,32 @@ def route(dtype: torch.dtype, d: int) -> str:
     """The kernel a CUDA call of this dtype and head width takes:
     ``"mma"`` (tensor cores) or ``"cuda_cores"``."""
     return "mma" if dtype == torch.bfloat16 and d in MMA_D else "cuda_cores"
+
+
+def mma_row_chunks(d: int) -> int:
+    """16-byte chunks in one shared row of the tensor-core kernel at head
+    width ``d`` (``fm_row<D>::stride / 8``): D / 8, or the next odd count
+    when D / 8 is not a multiple of 8 (D 160: 21)."""
+    chunks = d // 8
+    return chunks if chunks % 8 == 0 else chunks | 1
+
+
+def mma_smem_offset(d: int, row: int, chunk: int) -> int:
+    """Element offset of (row, 16-byte chunk) in a shared tile of the
+    tensor-core kernel (``fm_swz<D>``): rows of :func:`mma_row_chunks`
+    chunks; when that count is a multiple of 8, chunk ``c`` of row ``r``
+    sits at chunk ``c ^ (r % 8)``, else at chunk ``c``."""
+    chunks = mma_row_chunks(d)
+    if chunks % 8 == 0:
+        chunk ^= row & 7
+    return (row * chunks + chunk) * 8
+
+
+def mma_smem_bytes(d: int) -> int:
+    """Dynamic shared bytes of a block of the tensor-core kernel
+    (``fm_smem_bytes<D>``): a Q tile and two stages of K and V tiles,
+    bf16 rows of :func:`mma_row_chunks` chunks."""
+    return (MMA_BQ + 4 * MMA_BK) * mma_row_chunks(d) * 16
 
 
 def mma_resources() -> dict:

@@ -15,6 +15,11 @@ JAX package holds its kernel to its reference; against the port's plain
 version (f32 P) the card gate of ``chip_smoke.py`` and
 ``test_torch_gpu.py``: ``2^-7 |want| + 1e-3 max|want|``, one bf16 rounding
 of the output.
+
+The kernel's shared-memory row layout is held here through its Python
+mirror (``mma_smem_offset``, ``mma_smem_bytes``): every (row, chunk) of a
+tile has a slot of its own, and every 8-row ``ldmatrix`` read falls on 8
+distinct bank groups; the card test ties the mirror's bytes to the build.
 """
 import math
 
@@ -35,8 +40,9 @@ GATE_REL, GATE_FLOOR = 2.0 ** -7, 1e-3
 TILE = 64
 LOG2E = 1.4426950408889634
 
-#: The kernel each config's attention takes on the card: bf16 at D 64 or
-#: 128 goes to the tensor cores, other widths to the CUDA-core kernel.
+#: The kernel each config's attention takes on the card: bf16 at D 64,
+#: 128 or 160 goes to the tensor cores, other widths to the CUDA-core
+#: kernel.
 CONFIG_ROUTE = {
     "qwen3_0_6b": (64, "mma"),
     "starcoder2_7b": (128, "mma"),
@@ -44,7 +50,7 @@ CONFIG_ROUTE = {
     "qwen3_14b": (128, "mma"),
     "mamba2_130m": (32, "cuda_cores"),
     "seamless_m4t_large_v2": (64, "mma"),
-    "pixtral_12b": (160, "cuda_cores"),
+    "pixtral_12b": (160, "mma"),
     "dbrx_132b": (128, "mma"),
     "olmoe_1b_7b": (128, "mma"),
     "recurrentgemma_2b": (256, "cuda_cores"),
@@ -77,7 +83,7 @@ def test_route_of_the_ports_config():
 @pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 160, 256])
 def test_route_is_by_dtype_and_width_only(d):
     assert FL.route(torch.float32, d) == "cuda_cores"
-    assert FL.route(torch.bfloat16, d) == ("mma" if d in (64, 128)
+    assert FL.route(torch.bfloat16, d) == ("mma" if d in (64, 128, 160)
                                            else "cuda_cores")
 
 
@@ -177,7 +183,7 @@ def _gate_excess(got, want):
 
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 160])
 def test_emulated_kernel_matches_jax_and_the_plain_version(d, causal,
                                                            group):
     (jq, jk, jv), (tq, tk, tv) = _inputs(d + group + causal, 1, 2 * group,
@@ -202,6 +208,78 @@ def test_emulated_kernel_on_ragged_tiles(s, causal):
     assert _gate_excess(got, want) <= 1.0
     if s == 1:
         assert torch.equal(got, tv.repeat_interleave(2, 1))
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 129])
+@pytest.mark.parametrize("causal", [True, False])
+def test_emulated_kernel_on_ragged_tiles_at_d160(s, causal):
+    """The same at pixtral's head width, 20 chunks a row: against the
+    plain version and the JAX package's kernel (Pallas, interpret
+    mode)."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(s + 160, 1, 4, 2, s, 160)
+    got = _emulated(tq, tk, tv, causal)
+    want = FL.flash_attention_plain(tq, tk, tv, causal=causal)
+    assert _gate_excess(got, want) <= 1.0
+    want_jax = np.asarray(jnp.asarray(
+        JFL.flash_attention(jq, jk, jv, causal=causal), jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want_jax,
+                               rtol=FLASH_BF16_TOL, atol=FLASH_BF16_TOL)
+    if s == 1:
+        assert torch.equal(got, tv.repeat_interleave(2, 1))
+
+
+def _ldmatrix_reads(d):
+    """The (row, chunk) each of the 32 lanes reads in every ldmatrix.x4
+    of one block (4 warps) of ``flare_flash_mma_kernel``: the Q
+    fragments, K's B fragments and V's transposed B fragments."""
+    ks = d // 16
+    for warp in range(4):
+        for kc in range(ks):
+            yield [(warp * 16 + (ln & 15), 2 * kc + (ln >> 4))
+                   for ln in range(32)]
+    for np_ in range(TILE // 16):
+        for kc in range(ks):
+            yield [(np_ * 16 + (ln & 7) + ((ln >> 4) << 3),
+                    2 * kc + ((ln >> 3) & 1)) for ln in range(32)]
+    for kk in range(TILE // 16):
+        for dn in range(ks):
+            yield [(kk * 16 + (ln & 7) + (((ln >> 3) & 1) << 3),
+                    2 * dn + (ln >> 4)) for ln in range(32)]
+
+
+@pytest.mark.parametrize("d", [64, 128, 160])
+def test_shared_row_layout_has_a_slot_per_chunk_and_no_bank_conflict(d):
+    """The mirror of ``fm_swz<D>``: a 64-row tile's (row, chunk) pairs
+    take distinct 16-byte slots inside the tile, the five tiles (Q, two
+    stages of K and V) fit ``mma_smem_bytes``, and each 8-lane matrix of
+    every ldmatrix read hits 8 distinct bank groups (16-byte units mod
+    128 bytes).  At D 64 and 128 it is the XOR swizzle the kernel has
+    had since it landed."""
+    chunks = d // 8
+    row_bytes = FL.mma_row_chunks(d) * 16
+    tile_bytes = TILE * row_bytes
+    assert tile_bytes % 128 == 0          # every tile starts on bank 0
+    assert FL.mma_smem_bytes(d) == 5 * tile_bytes
+    slots = {}
+    for r in range(TILE):
+        for c in range(chunks):
+            off = FL.mma_smem_offset(d, r, c) * 2
+            assert off % 16 == 0 and 0 <= off and off + 16 <= tile_bytes
+            assert slots.setdefault(off // 16, (r, c)) == (r, c)
+            if d in (64, 128):
+                assert FL.mma_smem_offset(d, r, c) == \
+                    r * d + ((c ^ (r % 8)) << 3)
+    assert len(slots) == TILE * chunks
+    n_reads = 0
+    for lanes in _ldmatrix_reads(d):
+        n_reads += 1
+        for m in range(4):
+            group = lanes[8 * m:8 * m + 8]
+            assert all(0 <= r < TILE and 0 <= c < chunks for r, c in group)
+            banks = {FL.mma_smem_offset(d, r, c) * 2 // 16 % 8
+                     for r, c in group}
+            assert len(banks) == 8, (d, group)
+    assert n_reads == 4 * (d // 16) * 3
 
 
 @pytest.mark.parametrize("causal", [True, False])

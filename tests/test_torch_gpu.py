@@ -152,11 +152,13 @@ def _randn(gen, shape, dtype, dev):
 
 
 #: (b, h, hkv, s, d): the first four since the CUDA-core kernel landed;
-#: then the tensor-core kernel's widths at S 64 (one tile), 97 and 1000
-#: (ragged last tiles) and 300, each at GQA groups 1, 2 and 4.
+#: then the tensor-core kernel's widths (64, 128, and pixtral's 160 with
+#: its padded shared rows) at S 64 (one tile), 97 and 1000 (ragged last
+#: tiles) and 300, each at GQA groups 1, 2 and 4.
+MMA_WIDTHS = (64, 128, 160)
 FLASH_SHAPES = [(1, 2, 1, 128, 64), (2, 4, 2, 200, 32), (1, 8, 2, 97, 128),
                 (2, 16, 8, 300, 64)] + [
-    (2, 2 * g, 2, s, d) for d in (64, 128) for s in (64, 97, 300, 1000)
+    (2, 2 * g, 2, s, d) for d in MMA_WIDTHS for s in (64, 97, 300, 1000)
     for g in (1, 2, 4)]
 
 
@@ -173,12 +175,30 @@ def test_flash_kernel_matches_plain(card, dtype, causal, b, h, hkv, s, d):
     got = FL.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     mma = FL.route(dtype, d) == "mma"
-    assert mma == (dtype == torch.bfloat16 and d in (64, 128))
+    assert mma == (dtype == torch.bfloat16 and d in MMA_WIDTHS)
     assert (FL.launches, FL.launches_mma, FL.launches_cuda_cores) == (
         before[0] + 1, before[1] + mma, before[2] + (not mma))
     want = FL.flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     assert_within_rounding(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_mma_resources_match_the_layout_mirror(card):
+    """The built tensor-core kernel's dynamic shared bytes at each width
+    are the mirror's (``mma_smem_bytes``, which the CPU layout test
+    holds to the row layout); the D 160 build reports its registers and
+    spill bytes, and its shared bytes leave room for two blocks an SM."""
+    res = FL.mma_resources()
+    assert sorted(res) == list(MMA_WIDTHS)
+    for d in MMA_WIDTHS:
+        assert res[d]["dynamic_smem"] == FL.mma_smem_bytes(d)
+    r160 = res[160]
+    print(f"flash_attention_mma D 160: {r160}")
+    assert 0 < r160["registers"] <= 255 and r160["local_bytes"] >= 0
+    # sm_90: 228 KB of shared memory an SM, 1 KB of it reserved a block
+    assert 2 * (r160["dynamic_smem"] + r160["static_smem"] + 1024) \
+        <= 228 * 1024
 
 
 @pytest.mark.gpu
@@ -218,7 +238,7 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(card):
         FL.flash_attention(q.half(), q.half(), q.half())
     # the tensor-core kernel: 16-byte aligned, contiguous, one dtype
     before = (FL.launches, FL.launches_mma, FL.launches_cuda_cores)
-    for d in (64, 128):
+    for d in MMA_WIDTHS:
         flat = torch.zeros(2 * 64 * d + 1, device=card, dtype=torch.bfloat16)
         odd = flat[1:].view(1, 2, 64, d)          # 2 bytes off 16
         good = torch.zeros(1, 2, 64, d, device=card, dtype=torch.bfloat16)
