@@ -48,7 +48,10 @@ Phases, in order; any failure exits non-zero:
    the CUDA-core kernel on the same inputs in f32, and in bf16 at
    recurrentgemma-2b's layer shape on inputs from the seed (B 8 x H 10
    (Hkv 1) x S 2048 x D 256, causal; its rolled-heads fault rolls the
-   batch rows) --, ``decode_attention``
+   batch rows) --, the tensor-core kernel at D 160 on seeded inputs (B 1
+   x H 4 (Hkv 1) x S 256, causal) against an emulation of its arithmetic
+   with and without the split of P into two bf16 parts (it must lie far
+   nearer the split one), ``decode_attention``
    on the serving path's layer-0 cache after prefill (B 8, 2048 + 1
    positions) and at ``decode_32k``'s length (B 8, S 32 768, lengths from
    the seed); each held to one rounding of its plain version's output
@@ -254,7 +257,31 @@ Phases, in order; any failure exits non-zero:
    causal) layer-0 inputs and decode at the first step's (group 1, D
    64, lengths 2049) against their plain versions with phase 6's planted
    faults, taken from a kernel-path prefill of token ids drawn over the
-   vocab.  Its lines are tagged ``[encdec]``.
+   vocab.  Its lines are tagged ``[encdec]``;
+17. the ssm family, after phase 16 (its state freed): ``mamba2-130m`` at
+   full width and depth from the seed (each stacked mixer matrix at its
+   own fan-in, the per-head decays drawn as the Mamba2 reference draws
+   them); (a) served B 8 x 2048 + 32 greedy tokens through
+   ``serve_llm.generate`` on token ids drawn over the vocab, prefill ms,
+   decode ms and tokens/s, peak bytes, the parameter count beside the
+   JAX package's, the attention kernels' counts reset before and read
+   after (none: the family has no attention); (b) the gate: the served
+   prefill logits and every decode step's within the bf16 budget (a
+   bf16 forward over prompt and completion against the f32 forward) of
+   the bf16 forward's at the same positions, and three planted faults
+   beyond it over the first decode steps -- the decay skipped in the
+   decode step, the conv tail taken one position early, the decode
+   started from a zeroed state; (c) ``long_500k``: B 1, a prompt of
+   524 032 seeded token ids, 256 greedy tokens through
+   ``serve_llm.generate``, prefill ms, decode tokens/s, peak bytes
+   against the card's, the last decode step's logits within the budget
+   (``Model.prefill`` over all 524 288 tokens in bf16 against f32) of
+   the bf16 prefill's; (d) five train steps at B 4 x S 4096 through
+   ``launch.train.train_loop`` on synthetic documents, step ms,
+   tokens/s, peak bytes, a finite loss; (e) device profiles of four
+   decode steps at B 8 and of the ``long_500k`` prefill through its
+   first 2 layers (device ms, busy share, launches, top kernels).  Its
+   lines are tagged ``[ssm]``.
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -262,6 +289,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -1236,6 +1264,100 @@ def seeded_flash_record(torch, F, FL, c: dict, seed: int, label: str):
     return rec
 
 
+#: the D 160 split check of phase 6: B 1 x H 4 (Hkv 1) x S 256, causal,
+#: seeded.  The kernel adds P V as (P rounded to bf16) V + (the rest of
+#: P, rounded to bf16) V; a kernel that dropped the second part would
+#: still pass the one-rounding limit at D 160 (bf16_p_err_over_limit
+#: 0.79-0.96, PERF.md), so this check compares the kernel with the two
+#: emulations of its arithmetic: its mean distance to the split one must
+#: be below SPLIT_MARGIN of its distance to the one without the split.
+#: On the CPU the plain version (f32 P) sits at about 1/600 of that
+#: ratio (tests/test_torch_flash_mma.py), the emulation without the
+#: split at infinity.
+SPLIT_CHECK = dict(b=1, h=4, hkv=1, s=256, d=160)
+SPLIT_MARGIN = 0.1
+#: the emulation's tile and exp2 scale (flash_attention_mma.cuh)
+MMA_TILE, LOG2E = 64, 1.4426950408889634
+
+
+def emulate_flash_mma(torch, q, k, v, causal: bool, split: bool = True):
+    """What ``flash_attention_mma.cuh`` computes, in f32 on the CPU (a
+    copy of the CPU tests' emulation): q ``[BH, S, D]``, k/v ``[BHkv, S,
+    D]`` bf16 -> ``[BH, S, D]`` bf16; bf16 products are exact in f32 and
+    added in f32, the online softmax runs per 64-key tile in base 2, and
+    P V is added as P rounded to bf16 times V plus, with ``split``, the
+    rest of P rounded to bf16 times V."""
+    bh, s, d = q.shape
+    group = bh // k.shape[0]
+    scale_log2 = torch.tensor(d ** -0.5 * LOG2E, dtype=torch.float32)
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, 0)
+    vf = v.float().repeat_interleave(group, 0)
+    out = torch.empty(bh, s, d, dtype=torch.float32)
+    t = MMA_TILE
+    n_k = math.ceil(s / t)
+    for qt in range(math.ceil(s / t)):
+        rows = torch.arange(qt * t, (qt + 1) * t)
+        qb = qf[:, qt * t:(qt + 1) * t]
+        qb = torch.cat([qb, qb.new_zeros(bh, t - qb.shape[1], d)], 1)
+        m = torch.full((bh, t, 1), -1e30)
+        l = torch.zeros(bh, t, 1)
+        acc = torch.zeros(bh, t, d)
+        for j in range(min(qt + 1, n_k) if causal else n_k):
+            keys = torch.arange(j * t, (j + 1) * t)
+            kb = torch.zeros(bh, t, d)
+            vb = torch.zeros(bh, t, d)
+            n = min(s - j * t, t)             # rows past S are zero-filled
+            kb[:, :n] = kf[:, j * t:j * t + n]
+            vb[:, :n] = vf[:, j * t:j * t + n]
+            x = (qb @ kb.transpose(1, 2)) * scale_log2
+            if causal:
+                x = x.masked_fill(keys[None, :] > rows[:, None], -1e30)
+            x = x.masked_fill((keys >= s)[None, :], -math.inf)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            hi = p.bfloat16().float()
+            acc = acc * alpha + hi @ vb
+            if split:
+                acc = acc + (p - hi).bfloat16().float() @ vb
+            m = m_new
+        o = acc / l.clamp_min(1e-30)
+        out[:, qt * t:(qt + 1) * t] = o[:, :min(t, s - qt * t)]
+    return out.bfloat16()
+
+
+def split_check(torch, FL, seed: int) -> dict:
+    """Phase 6: the tensor-core kernel at D 160 on seeded inputs
+    (:data:`SPLIT_CHECK`) against :func:`emulate_flash_mma` with and
+    without the split of P: the mean absolute distance and the share of
+    elements that differ, each way; fails unless the kernel lies within
+    :data:`SPLIT_MARGIN` of its distance to the unsplit emulation."""
+    c = SPLIT_CHECK
+    g = torch.Generator(device="cuda").manual_seed(seed + 1160)
+    q, k, v = (torch.randn(c["b"], h, c["s"], c["d"], generator=g,
+                           device="cuda").bfloat16()
+               for h in (c["h"], c["hkv"], c["hkv"]))
+    check(FL.route(q.dtype, c["d"]) == "mma", "D 160 takes the tensor cores")
+    got = FL.flash_attention(q, k, v, causal=True).float().cpu().reshape(
+        c["b"] * c["h"], c["s"], c["d"])
+    args = [t.cpu().reshape(-1, c["s"], c["d"]) for t in (q, k, v)]
+    out = {"shape": dict(c, causal=True), "margin": SPLIT_MARGIN}
+    for name, split in (("split", True), ("bf16_p", False)):
+        diff = (got - emulate_flash_mma(torch, *args, causal=True,
+                                        split=split).float()).abs()
+        out[f"mean_abs_to_{name}"] = float(diff.mean())
+        out[f"share_differing_{name}"] = float((diff > 0).float().mean())
+    out["ratio"] = out["mean_abs_to_split"] / max(out["mean_abs_to_bf16_p"],
+                                                  1e-30)
+    log(f"[kernel] flash_attention_mma D 160 split check {json.dumps(out)}")
+    check(out["mean_abs_to_bf16_p"] > 0 and out["ratio"] < SPLIT_MARGIN,
+          f"flash_attention_mma at D 160 is not clearly nearer the split "
+          f"emulation than the unsplit one: {json.dumps(out)}")
+    return out
+
+
 def decode_reset_unit(CB) -> str:
     """The decode unit without its ticket memset: the block that folds a
     pair sets the pair's ticket back to 0, so a scratch zeroed once serves
@@ -1393,6 +1515,7 @@ def lm_kernel_checks(torch, F, Model, serve_llm, FL, DA, cfg, params,
         torch, F, FL, dict(b=SERVE_BATCH, h=c["hkv"] * c["group"],
                            hkv=c["hkv"], s=SERVE_PROMPT, d=c["d"]),
         seed, "flash_attention_cuda_cores[bf16 D 256, recurrentgemma-2b]"))
+    split_check(torch, FL, seed)
 
     with CaptureFirst(DA, "decode_attention") as cap:
         serve_llm.generate(LM_ARCH, reduced=False, batch=SERVE_BATCH,
@@ -2686,6 +2809,356 @@ def encdec_phase(torch, seed: int) -> list:
         f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
         f"prefill vs blockwise {json.dumps(gate['prefill_vs_blockwise'])}")
     return records
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the ssm family (mamba2-130m at full width)
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-130m"
+#: ``repro.models.modeling.Model(get("mamba2_130m")).n_params()`` of the
+#: JAX package (``tests/test_torch_configs.py`` holds the port's equal)
+JAX_SSM_N_PARAMS = 167_635_392
+#: long_500k's 524 288 tokens at B 1: a prompt of 2047 chunks of 256,
+#: then 256 greedy tokens (an odd length would fall to chunks of 1)
+LONG_PROMPT, LONG_GEN = 524_032, 256
+#: decode steps each planted fault of the gate is held over
+SSM_FAULT_STEPS = 4
+#: offsets of the script's seed: the gate's and long_500k's prompts, the
+#: per-head decays
+SSM_GATE_SEED, SSM_LONG_SEED, SSM_DECAY_SEED = 104, 105, 106
+#: the layers of long_500k's profiled prefill, the decode steps of the
+#: profiled serving decode (B 8)
+SSM_PROFILE_LAYERS, SSM_PROFILE_STEPS = 2, 4
+#: the trainer's run: 5 steps at train_4k's length, B 4
+SSM_TRAIN_STEPS, SSM_TRAIN_DOCS = 5, 200
+
+
+def mamba2_decays(torch, cfg, params, seed: int) -> dict:
+    """The seeded weights made to behave as a trained Mamba2's, in place:
+    each stacked mixer matrix rescaled from the init's fan-in (which
+    counts the layer axis) to its own contraction's, and the per-head
+    decays drawn as the Mamba2 reference initialises them (A uniform in
+    [1, 16], dt log-uniform in [0.001, 0.1] through ``dt_bias``, the
+    inverse softplus), where the spec's constant init (A 1, dt 0.69)
+    forgets a token's state in a few tokens and so no chunk's state would
+    reach the next.  Returns the rescale factors and the range of the
+    per-token decays exp(-A dt)."""
+    mixer = params["layers"]["mixer"]
+    factors = {}
+    for name in ("in_proj", "out_proj", "conv_w"):
+        factors[name] = math.sqrt(mixer[name].shape[0])
+        mixer[name].mul_(factors[name])
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = mixer["A_log"].shape
+    a = 1 + 15 * torch.rand(shape, generator=g, device="cuda")
+    dt = torch.exp(math.log(1e-3) + torch.rand(shape, generator=g,
+                                                device="cuda")
+                   * (math.log(0.1) - math.log(1e-3)))
+    mixer["A_log"].copy_(torch.log(a))
+    mixer["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+    decay = torch.exp(-a * dt)
+    return {"rescale": factors, "decay_min": float(decay.min()),
+            "decay_max": float(decay.max())}
+
+
+@contextlib.contextmanager
+def seeded_prompts(serve_llm, seed: int):
+    """``serve_llm.generate``'s prompts drawn uniformly over the vocab
+    from ``seed`` while active (its own are ~30 byte tokens and padding,
+    which hide faults)."""
+    orig = serve_llm.synthetic_prompts
+    serve_llm.synthetic_prompts = lambda batch, prompt_len, vocab: (
+        np.random.default_rng(seed).integers(0, vocab, (batch, prompt_len)))
+    try:
+        yield
+    finally:
+        serve_llm.synthetic_prompts = orig
+
+
+def ssm_gate(torch, SSM, TF, Model, model, params, lp, prompts, res) -> dict:
+    """Phase 17 (b): the budget (a bf16 forward over prompt + completion
+    against the f32 forward, at the served positions); the served prefill
+    logits and every decode step's within it of the bf16 forward's; and
+    three planted faults that must move the first
+    :data:`SSM_FAULT_STEPS` decode steps (teacher-forced on the served
+    completions) beyond it: the decay exp(a dt) skipped in every decode
+    step, the conv tail taken one position early, the decode started
+    from a zeroed state."""
+    cfg = model.cfg
+    p0 = prompts.shape[1]
+    comp = torch.as_tensor(res["completions"], device="cuda")
+    seq = torch.cat([prompts, comp], dim=1)
+    keep = slice(p0 - 1, seq.shape[1])              # the served positions
+    ref = model.forward(lp, {"tokens": seq})[0][:, keep].contiguous()
+    f32 = Model(dataclasses.replace(cfg, compute_dtype=torch.float32))
+    exact = f32.forward(params, {"tokens": seq})[0][:, keep].contiguous()
+    noise = logit_err(torch, ref, exact, "mamba2 forward bf16 vs f32")
+    del exact
+    out = {"forward_bf16_vs_f32": noise,
+           "prefill_vs_forward": logit_err(
+               torch, res["prefill_logits"], ref[:, 0],
+               "mamba2 served prefill vs forward"),
+           "decode_vs_forward": logit_err(
+               torch, res["decode_logits"], ref[:, 1:],
+               "mamba2 served decode steps vs forward")}
+    for key in ("prefill_vs_forward", "decode_vs_forward"):
+        out[key]["over_budget"] = over_budget(out[key], noise)
+
+    def forced(hook=None):
+        logits, caches = model.prefill(lp, {"tokens": prompts})
+        if hook:
+            hook(caches)
+        steps = []
+        for i in range(SSM_FAULT_STEPS):
+            logits, caches = model.decode_step(lp, comp[:, i], caches,
+                                               p0 + i)
+            steps.append(logits)
+        return torch.stack(steps, 1)
+
+    def patched(module, name, fn):
+        orig = getattr(module, name)
+        setattr(module, name, fn(orig))
+        try:
+            return forced()
+        finally:
+            setattr(module, name, orig)
+
+    bad = {
+        # A_log -inf makes a = -exp(A_log) zero: exp(a dt) is 1
+        "decay skipped": patched(SSM, "mamba2_step", lambda orig: (
+            lambda p, c, u, cache, sc: orig(
+                dict(p, A_log=torch.full_like(p["A_log"], -math.inf)), c,
+                u, cache, sc))),
+        "conv tail one position early": patched(
+            TF, "SSM_conv_tail",
+            lambda orig: lambda p, c, h: orig(p, c, h[:, :-1])),
+        "zeroed state": forced(
+            lambda caches: caches["layers"]["state"].zero_()),
+    }
+    # (e) where a decode step's time goes: SSM_PROFILE_STEPS steps at B 8
+    logits, caches = model.prefill(lp, {"tokens": prompts})
+    out["profile_decode"] = dict(device_profile(torch, lambda: [
+        model.decode_step(lp, comp[:, i], caches, p0 + i)
+        for i in range(SSM_PROFILE_STEPS)]), steps=SSM_PROFILE_STEPS)
+    del logits, caches
+    out["faults"] = {}
+    want = ref[:, 1:1 + SSM_FAULT_STEPS]
+    for name, logits in bad.items():
+        err = logit_err(torch, logits, want, f"mamba2 {name}")
+        out["faults"][name] = dict(err, over_budget=over_budget(err, noise))
+    del bad, ref, want
+    log(f"[ssm] gate {json.dumps(out)}")
+    for key in ("prefill_vs_forward", "decode_vs_forward"):
+        check(out[key]["over_budget"] <= 1.0, f"mamba2 {key}: "
+              f"{out[key]['over_budget']:.3g} of the bf16 budget {noise}")
+    for name, f in out["faults"].items():
+        check(f["over_budget"] > 1.0, f"mamba2: the bf16 budget passes the "
+              f"planted fault '{name}' ({f['over_budget']:.3g} of it)")
+    return out
+
+
+def device_profile(torch, fn) -> dict:
+    """One call of ``fn`` after a warm one, profiled (device events only):
+    its wall ms, device ms, busy share, kernel launches and the kernels
+    that take most of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if device_work(e)]
+    dev = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    return {"wall_ms": wall, "device_ms": dev, "device_busy_share":
+            dev / wall, "launches": sum(e.count for e in kernels),
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                    for e in top]}
+
+
+def ssm_long(torch, SSM, serve_llm, Model, model, params, lp,
+             seed: int) -> dict:
+    """Phase 17 (c): long_500k -- B 1, a prompt of :data:`LONG_PROMPT`
+    token ids from the seed, :data:`LONG_GEN` greedy tokens through
+    ``serve_llm.generate``; the last decode step's logits within the
+    budget (``Model.prefill`` over prompt + completion in bf16 against
+    the same in f32, 524 288 tokens, the same slabs) of the bf16
+    prefill's."""
+    cfg = model.cfg
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with seeded_prompts(serve_llm, seed + SSM_LONG_SEED):
+        res = serve_llm.generate(SSM_ARCH, reduced=False, batch=1,
+                                 prompt_len=LONG_PROMPT, gen=LONG_GEN,
+                                 params=lp, seed=seed, return_logits=True)
+        prompts = serve_llm.synthetic_prompts(1, LONG_PROMPT, cfg.vocab)
+    torch.cuda.synchronize()
+    st = res["stats"]
+    n = LONG_PROMPT + LONG_GEN
+    q = SSM.chunk_len(n, cfg.ssm_chunk)
+    out = {"prompt": LONG_PROMPT, "gen": LONG_GEN, "tokens": n,
+           "chunk": SSM.chunk_len(LONG_PROMPT, cfg.ssm_chunk),
+           "slabs_per_layer": len(SSM._slabs(
+               n // q, cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+               * q * q)),
+           "prefill_ms": st.prefill_s * 1e3, "decode_ms": st.decode_s * 1e3,
+           "decode_tokens_per_s": st.tokens_per_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card_gb": total / 1e9}
+    check(res["completions"].shape == (1, LONG_GEN)
+          and tuple(res["decode_logits"].shape) == (1, LONG_GEN,
+                                                    cfg.padded_vocab)
+          and bool(torch.isfinite(res["decode_logits"]).all()),
+          "mamba2 long_500k: logits of the wrong shape or not finite")
+    seq = torch.cat([torch.as_tensor(prompts, device="cuda"),
+                     torch.as_tensor(res["completions"], device="cuda")], 1)
+    check(tuple(seq.shape) == (1, n) and q == cfg.ssm_chunk,
+          f"long_500k sequence {tuple(seq.shape)}, chunk {q}")
+    t0 = time.perf_counter()
+    ref = model.prefill(lp, {"tokens": seq})[0]
+    torch.cuda.synchronize()
+    out["prefill_524288_ms"] = (time.perf_counter() - t0) * 1e3
+    # (e) where a prefill's time goes: the same sequence through the
+    # first SSM_PROFILE_LAYERS layers
+    from repro_torch.models import param as PM
+    cut = dict(lp, layers=PM.tree_map(lambda a: a[:SSM_PROFILE_LAYERS],
+                                      lp["layers"]))
+    out["profile_prefill"] = dict(device_profile(
+        torch, lambda: model.prefill(cut, {"tokens": seq})),
+        layers=SSM_PROFILE_LAYERS)
+    del cut
+    exact = Model(dataclasses.replace(
+        cfg, compute_dtype=torch.float32)).prefill(params,
+                                                   {"tokens": seq})[0]
+    noise = logit_err(torch, ref, exact, "mamba2 long_500k bf16 vs f32")
+    err = logit_err(torch, res["decode_logits"][:, -1], ref,
+                    "mamba2 long_500k last decode step vs prefill")
+    out["prefill_bf16_vs_f32"] = noise
+    out["last_decode_vs_prefill"] = dict(err,
+                                         over_budget=over_budget(err, noise))
+    out["peak_gb_with_checks"] = torch.cuda.max_memory_allocated() / 1e9
+    del res, seq, ref, exact
+    log(f"[ssm] long_500k {json.dumps(out)}")
+    check(out["last_decode_vs_prefill"]["over_budget"] <= 1.0,
+          f"mamba2 long_500k: the last decode step at "
+          f"{out['last_decode_vs_prefill']['over_budget']:.3g} of the bf16 "
+          f"budget {noise}")
+    return out
+
+
+def ssm_train(torch, seed: int) -> dict:
+    """Phase 17 (d): :data:`SSM_TRAIN_STEPS` steps of mamba2-130m at full
+    width through ``launch.train.train_loop`` at B 4 x S 4096 on
+    synthetic documents (the ``compiled`` ETL); the loss finite."""
+    from repro_torch.launch.train import TrainRun, train_loop
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train_loop(TrainRun(
+        arch=SSM_ARCH, reduced=False, steps=SSM_TRAIN_STEPS,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=2, seed=seed,
+        n_docs=SSM_TRAIN_DOCS, log_every=1, device="cuda"))
+    torch.cuda.synchronize()
+    losses = run["losses"]
+    check(len(losses) == SSM_TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"mamba2 training losses {losses}")
+    step_ms = [t * 1e3 for t in run["step_s"][1:]]
+    out = {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
+           "step_ms_first": run["step_s"][0] * 1e3,
+           "step_ms": float(np.median(step_ms)),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "run_s": time.perf_counter() - t0}
+    out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (out["step_ms"] / 1e3)
+    log(f"[ssm] train {json.dumps(out)}")
+    return out
+
+
+def ssm_phase(torch, seed: int) -> None:
+    """Phase 17: mamba2-130m at full width and depth from the seed
+    (:func:`mamba2_decays`); (a) served B 8 x 2048 + 32 greedy tokens on
+    seeded token ids through ``serve_llm.generate`` -- prefill ms, decode
+    ms, tokens/s, peak bytes, the attention kernels' launches (none);
+    (b) :func:`ssm_gate`; (c) :func:`ssm_long`; (d) :func:`ssm_train`;
+    (e) profiles of 4 decode steps at B 8 (in the gate) and of a
+    long_500k prefill through 2 layers (in ``ssm_long``).
+    The attention kernels' counts are reset at its start and must read 0
+    at its end: the family has no attention."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.decode_attention import kernel as DA
+    from repro_torch.kernels.flash_attention import kernel as FL
+    from repro_torch.launch import serve_llm
+    from repro_torch.models import param as PM
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.modeling import Model
+
+    t0 = time.perf_counter()
+    reset_attention_counts(FL, DA)
+    cfg = get(SSM_ARCH)
+    model = Model(cfg)
+    params = model.init(seed)
+    out = {"arch": SSM_ARCH, "params": model.n_params(),
+           "jax_params": JAX_SSM_N_PARAMS,
+           "init": mamba2_decays(torch, cfg, params, seed + SSM_DECAY_SEED)}
+    check(out["params"] == JAX_SSM_N_PARAMS,
+          f"mamba2: {out['params']} parameters, the JAX package's "
+          f"{JAX_SSM_N_PARAMS}")
+    lp = PM.cast_compute(params, cfg.compute_dtype)
+
+    # (a) serving on seeded token ids, the kernels' counts reset just
+    # before and read just after
+    kw = dict(reduced=False, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+              params=lp, seed=seed)
+    with seeded_prompts(serve_llm, seed + SSM_GATE_SEED):
+        serve_llm.generate(SSM_ARCH, gen=2, **kw)              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_attention_counts(FL, DA)
+        res = serve_llm.generate(SSM_ARCH, gen=SERVE_GEN,
+                                 return_logits=True, **kw)
+        torch.cuda.synchronize()
+        out["launches"] = attention_counts(FL, DA)
+        prompts = torch.as_tensor(serve_llm.synthetic_prompts(
+            SERVE_BATCH, SERVE_PROMPT, cfg.vocab), device="cuda")
+    st = res["stats"]
+    out.update(prefill_ms=st.prefill_s * 1e3, decode_ms=st.decode_s * 1e3,
+               decode_tokens_per_s=st.tokens_per_s,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    v = cfg.padded_vocab
+    check(tuple(res["prefill_logits"].shape) == (SERVE_BATCH, v)
+          and tuple(res["decode_logits"].shape) == (SERVE_BATCH, SERVE_GEN,
+                                                    v)
+          and bool(torch.isfinite(res["prefill_logits"]).all())
+          and bool(torch.isfinite(res["decode_logits"]).all()),
+          "mamba2 serving: logits of the wrong shape or not finite")
+    check(sum(out["launches"].values()) == 0,
+          f"mamba2 serving launched attention kernels {out['launches']}")
+    log(f"[ssm] serving {json.dumps(out)}")
+
+    # (b) the gate, (c) long_500k, (d) training
+    gate = ssm_gate(torch, SSM, TF, Model, model, params, lp, prompts, res)
+    del res, prompts
+    torch.cuda.empty_cache()
+    long = ssm_long(torch, SSM, serve_llm, Model, model, params, lp, seed)
+    del params, lp
+    torch.cuda.empty_cache()
+    train = ssm_train(torch, seed)
+    torch.cuda.empty_cache()
+    counts = attention_counts(FL, DA)
+    check(sum(counts.values()) == 0,
+          f"phase 17 launched attention kernels {counts}")
+    log(f"[ssm] phase 17 took {time.perf_counter() - t0:.1f} s; serving "
+        f"prefill {out['prefill_ms']:.1f} ms, {out['decode_tokens_per_s']:.1f}"
+        f" tokens/s; decode at {gate['decode_vs_forward']['over_budget']:.3g}"
+        f" of the budget; long_500k prefill {long['prefill_ms']:.1f} ms, "
+        f"{long['decode_tokens_per_s']:.1f} tokens/s, peak "
+        f"{long['peak_gb']:.2f} of {long['card_gb']:.2f} GB; train step "
+        f"{train['step_ms']:.1f} ms; attention launches {json.dumps(counts)}")
 
 
 # ---------------------------------------------------------------------------
@@ -4366,6 +4839,8 @@ def run(sf: float, seed: int) -> int:
     moe_records = moe_phase(torch, seed)
     torch.cuda.empty_cache()
     encdec_recs = encdec_phase(torch, seed)
+    torch.cuda.empty_cache()
+    ssm_phase(torch, seed)
     log(f"[summary] total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records + lm_records + moe_records
                       + encdec_recs}))

@@ -1,8 +1,9 @@
 """ArchConfig: declarative architecture description + input shapes.
 
 The fields are those of the JAX package's config, with torch dtypes.  The
-port runs the ``dense`` and ``moe`` families; a config of another family
-can be described here, and the model code refuses it by name.
+port runs the ``dense``, ``moe``, ``ssm`` and ``encdec`` families; a
+config of another family can be described here, and the model code
+refuses it by name.
 """
 from __future__ import annotations
 

@@ -19,7 +19,7 @@ ARCHS: List[str] = [
 #: Archs whose config and family the port runs.
 PORTED: List[str] = [
     "qwen3_0_6b", "starcoder2_7b", "granite_8b", "qwen3_14b", "pixtral_12b",
-    "dbrx_132b", "olmoe_1b_7b", "seamless_m4t_large_v2",
+    "dbrx_132b", "olmoe_1b_7b", "seamless_m4t_large_v2", "mamba2_130m",
 ]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}

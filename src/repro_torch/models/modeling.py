@@ -9,10 +9,10 @@
     logits, caches = m.decode_step(params, tokens, caches, length)
     acaches = m.abstract_caches(batch, cache_len)   # meta tensors
 
-The families in :data:`FAMILIES`: the decoder-only ones are assembled
-in ``models/transformer.py``, encdec in ``models/encdec.py``, and
-``Model`` calls the same entry points of either; another family raises
-"not yet ported".  A vision config takes its precomputed patch
+The families in :data:`FAMILIES`: the decoder-only ones (dense, moe and
+ssm, ``transformer.FAMILIES``) are assembled in ``models/transformer.py``,
+encdec in ``models/encdec.py``, and ``Model`` calls the same entry points
+of either; another family raises "not yet ported".  A vision config takes its precomputed patch
 embeddings as ``batch["prefix"]``, an encdec config its frame embeddings
 (the audio frontend's stub, :func:`enc_len_of` frames) as
 ``batch["enc_embeds"]``.  ``loss``
@@ -52,7 +52,7 @@ def enc_len_of(cfg: ArchConfig, seq_len: int) -> int:
 
 
 #: The families the port runs, each with the module that assembles it.
-FAMILIES = {"dense": TF, "moe": TF, "encdec": ED}
+FAMILIES = dict({f: TF for f in TF.FAMILIES}, encdec=ED)
 
 
 @dataclasses.dataclass

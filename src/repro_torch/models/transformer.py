@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly, dense and moe families.
+"""Decoder-only LM assembly: the dense, moe and ssm families.
 
 One parameter tree + entry points per model:
 
@@ -19,7 +19,11 @@ keeps only each layer's input for the backward pass and recomputes the
 rest, ``"dots"`` also keeps the outputs of the products without batch
 dimensions, ``"none"`` keeps everything.  A moe layer's aux loss sums
 over the layers into ``forward``'s second output, and ``lm_loss`` adds
-0.01 of it.  Other families raise "not yet ported" here:
+0.01 of it.  An ssm layer is a Mamba2 mixer (``models/ssm.py``) behind
+one RMSNorm, with no attention and no MLP; its caches are the SSD state
+``[B, H, P, N]`` and the conv inputs of the last K-1 positions, both
+f32, and decoding takes no ``length``.  Other families raise "not yet
+ported" here:
 ``modeling.Model`` sends encdec to ``models/encdec.py``, which builds
 it from this module's pieces.
 """
@@ -35,13 +39,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.shardings import ShardingCtx
 from repro_torch.models import layers as L
 from repro_torch.models import param as PM
+from repro_torch.models import ssm as SSM
 from repro_torch.models.param import ArraySpec, tree_map
 
 F32 = torch.float32
 
 
 #: The families this module assembles.
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm")
 
 
 def require_ported(cfg: ArchConfig) -> None:
@@ -86,6 +91,13 @@ def _moe_cfg(cfg: ArchConfig) -> L.MoEConfig:
                        d_model=cfg.d_model, d_ff=cfg.d_ff, act=cfg.act)
 
 
+def _ssm_cfg(cfg: ArchConfig) -> SSM.SSMConfig:
+    return SSM.SSMConfig(
+        d_model=cfg.d_model, d_inner=cfg.ssm_expand * cfg.d_model,
+        head_dim=cfg.ssm_head_dim, n_groups=1, d_state=cfg.ssm_state,
+        chunk=cfg.ssm_chunk)
+
+
 # ---------------------------------------------------------------------------
 # layer specs
 # ---------------------------------------------------------------------------
@@ -94,6 +106,9 @@ def _moe_cfg(cfg: ArchConfig) -> L.MoEConfig:
 def _layer_spec(cfg: ArchConfig) -> Dict:
     require_ported(cfg)
     dt = cfg.param_dtype
+    if cfg.family == "ssm":
+        return {"ln": L.rms_norm_spec(cfg.d_model),
+                "mixer": SSM.mamba2_spec(_ssm_cfg(cfg), dt)}
     spec = {"ln1": L.rms_norm_spec(cfg.d_model),
             "attn": L.attention_spec(_attn_cfg(cfg), dt),
             "ln2": L.rms_norm_spec(cfg.d_model)}
@@ -133,6 +148,10 @@ def _ffn(cfg, p, x, sc):
 
 
 def _block(cfg, p, x, positions, sc):
+    if cfg.family == "ssm":
+        x = x + SSM.mamba2_block(p["mixer"], _ssm_cfg(cfg),
+                                 L.rms_norm(p["ln"], x), sc)
+        return x, torch.zeros((), dtype=F32, device=x.device)
     x = x + L.attention(p["attn"], _attn_cfg(cfg),
                         L.rms_norm(p["ln1"], x), positions, sc)
     y, aux = _ffn(cfg, p, x, sc)
@@ -239,12 +258,16 @@ def loss_of(logits: torch.Tensor, aux: torch.Tensor, batch: Dict
 
 def cache_spec(cfg: ArchConfig, batch: int, cache_len: int,
                enc_len: int = 0) -> Dict:
-    """Each layer's K/V cache of ``cache_len`` positions.  ``enc_len``
-    is unused (no encoder): it keeps the signature of
-    ``encdec.cache_spec``, which ``modeling.Model`` dispatches alike."""
+    """Each layer's K/V cache of ``cache_len`` positions; an ssm layer's
+    state and conv tail (``cache_len`` unused).  ``enc_len`` is unused
+    (no encoder): it keeps the signature of ``encdec.cache_spec``, which
+    ``modeling.Model`` dispatches alike."""
     require_ported(cfg)
-    one = L.attention_cache_spec(_attn_cfg(cfg), batch, cache_len,
-                                 cfg.compute_dtype)
+    if cfg.family == "ssm":
+        one = SSM.mamba2_cache_spec(_ssm_cfg(cfg), batch)
+    else:
+        one = L.attention_cache_spec(_attn_cfg(cfg), batch, cache_len,
+                                     cfg.compute_dtype)
     return {"layers": stack_specs(one, cfg.n_layers)}
 
 
@@ -257,6 +280,16 @@ def prefill(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx,
     prefix = batch.get("prefix")
     if prefix is not None:
         x = torch.cat([prefix.to(cfg.compute_dtype), x], dim=1)
+    if cfg.family == "ssm":
+        x, caches = _ssm_prefill(cfg, params, x, sc)
+    else:
+        x, caches = _attn_prefill(cfg, params, x, sc, cache_len)
+    x = L.rms_norm(params["final_norm"], x[:, -1:])
+    return _head(cfg, params, x)[:, 0].to(F32), caches
+
+
+def _attn_prefill(cfg: ArchConfig, params, x, sc: ShardingCtx,
+                  cache_len: int):
     positions = positions_of(x)
     acfg = _attn_cfg(cfg)
     ks, vs = [], []
@@ -269,27 +302,68 @@ def prefill(cfg: ArchConfig, params, batch: Dict, sc: ShardingCtx,
         x = x + _ffn(cfg, lp, x, sc)[0]
         ks.append(cache["k"])
         vs.append(cache["v"])
-    caches = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-    x = L.rms_norm(params["final_norm"], x[:, -1:])
-    return _head(cfg, params, x)[:, 0].to(F32), caches
+    return x, {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def _ssm_prefill(cfg: ArchConfig, params, x, sc: ShardingCtx):
+    """Each layer's final SSD state and :func:`SSM_conv_tail`."""
+    scfg = _ssm_cfg(cfg)
+    states, convs = [], []
+    for i in range(depth(params["layers"])):
+        lp = layer_params(params["layers"], i)
+        h = L.rms_norm(lp["ln"], x)
+        y, state = SSM.mamba2_block(lp["mixer"], scfg, h, sc,
+                                    return_state=True)
+        states.append(state)
+        convs.append(SSM_conv_tail(lp["mixer"], scfg, h))
+        x = x + y
+        del h, y
+    return x, {"layers": {"state": torch.stack(states),
+                          "conv": torch.stack(convs)}}
+
+
+def SSM_conv_tail(p, scfg: SSM.SSMConfig, h):
+    """Decode conv state after prefill: the last K-1 positions' conv
+    inputs (after the in-projection), f32."""
+    zxbcdt = h[:, -(scfg.conv_kernel - 1):] @ p["in_proj"]
+    return SSM._split_proj(scfg, zxbcdt)[1].to(F32)
 
 
 def decode_step(cfg: ArchConfig, params, tokens: torch.Tensor,
                 caches: Dict, length, sc: ShardingCtx):
-    """tokens: [B] int; length: tokens already cached.  Returns
-    (logits [B,V] f32, caches) -- the caches updated in place."""
+    """tokens: [B] int; length: tokens already cached (unused by ssm).
+    Returns (logits [B,V] f32, caches) -- the caches updated in place."""
     require_ported(cfg)
     params = PM.cast_compute(params, cfg.compute_dtype)
     x = params["embed"][tokens[:, None]].to(cfg.compute_dtype)
+    layers = _ssm_decode if cfg.family == "ssm" else _attn_decode
+    x = layers(cfg, params, x, caches["layers"], length, sc)
+    x = L.rms_norm(params["final_norm"], x)
+    return _head(cfg, params, x)[:, 0].to(F32), caches
+
+
+def _attn_decode(cfg: ArchConfig, params, x, caches, length,
+                 sc: ShardingCtx):
     acfg = _attn_cfg(cfg)
-    kc, vc = caches["layers"]["k"], caches["layers"]["v"]
     for i in range(depth(params["layers"])):
         lp = layer_params(params["layers"], i)
         a, _ = L.attention_decode(lp["attn"], acfg,
                                   L.rms_norm(lp["ln1"], x),
-                                  {"k": kc[i], "v": vc[i]}, length, sc)
+                                  {"k": caches["k"][i], "v": caches["v"][i]},
+                                  length, sc)
         x = x + a
         x = x + _ffn(cfg, lp, x, sc)[0]
-    x = L.rms_norm(params["final_norm"], x)
-    return _head(cfg, params, x)[:, 0].to(F32), caches
+    return x
 
+
+def _ssm_decode(cfg: ArchConfig, params, x, caches, length,
+                sc: ShardingCtx):
+    scfg = _ssm_cfg(cfg)
+    for i in range(depth(params["layers"])):
+        lp = layer_params(params["layers"], i)
+        y, new = SSM.mamba2_step(lp["mixer"], scfg, L.rms_norm(lp["ln"], x),
+                                 layer_params(caches, i), sc)
+        for k, t in new.items():
+            caches[k][i].copy_(t)
+        x = x + y
+    return x

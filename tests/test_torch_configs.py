@@ -38,8 +38,9 @@ from repro_torch.models.modeling import Model
 TOL = 1e-4
 _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 NEW = ["olmoe_1b_7b", "dbrx_132b", "granite_8b", "qwen3_14b",
-       "starcoder2_7b", "pixtral_12b", "seamless_m4t_large_v2"]
-UNPORTED = ["mamba2_130m", "recurrentgemma_2b"]
+       "starcoder2_7b", "pixtral_12b", "seamless_m4t_large_v2",
+       "mamba2_130m"]
+UNPORTED = ["recurrentgemma_2b"]
 
 
 def _fields(cfg):

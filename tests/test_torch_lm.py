@@ -417,11 +417,11 @@ def test_registry_and_device_policy():
     assert Model(cfg, device="cpu").n_params() == JModel(
         jget("qwen3-0.6b")).n_params()
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get("mamba2-130m")
+        get("recurrentgemma-2b")
     with pytest.raises(KeyError):
         get("no-such-arch")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        Model(dataclasses.replace(cfg, family="ssm"), device="cpu")
+        Model(dataclasses.replace(cfg, family="hybrid"), device="cpu")
     with pytest.raises(NotImplementedError):
         L.attention({}, L.AttnConfig(8, 2, 1, 4, impl="splash"),
                     torch.zeros(1, 2, 8), torch.zeros(1, 2), None)
