@@ -41,30 +41,31 @@ Phases, in order; any failure exits non-zero:
 5. goldens: q1, q6, q13 and q14 at SF 0.01 against ``tests/golden``;
 6. the LM path's kernels against their plain versions, on the path's own
    inputs, after lines with the tensor-core flash kernel's and the decode
-   kernel's registers, shared memory and spill bytes:
-   ``flash_attention`` on layer 0's q/k/v of the full-width
-   ``qwen3-0.6b`` forward -- the tensor-core kernel (B 4 x S 4096, bf16,
-   causal; also non-causal, and S 4000, not a multiple of the tile) and
-   the CUDA-core kernel on the same inputs in f32, and in bf16 at
-   recurrentgemma-2b's layer shape on inputs from the seed (B 8 x H 10
-   (Hkv 1) x S 2048 x D 256, causal; its rolled-heads fault rolls the
-   batch rows) --, the tensor-core kernel at D 160 on seeded inputs (B 1
-   x H 4 (Hkv 1) x S 256, causal) against an emulation of its arithmetic
-   with and without the split of P into two bf16 parts (it must lie far
-   nearer the split one), ``decode_attention``
-   on the serving path's layer-0 cache after prefill (B 8, 2048 + 1
-   positions) and at ``decode_32k``'s length (B 8, S 32 768, lengths from
-   the seed); each held to one rounding of its plain version's output
-   (bf16, or the f32 kernel tests' limit), a limit that must also reject
-   faults planted on the same inputs (among them the KV heads rolled by
-   one); kernel, plain and ``scaled_dot_product_attention`` times by
-   events around eager calls, the bound; for decode also two calls
-   bit-identical, the schedule the kernel wrote (chunk, items) against
-   its Python mirror, ``device_ms`` and ``library_device_ms`` (a CUDA
-   graph of one call replayed after an L2 flush, median), the wrapper's
-   host microseconds per call, and ``no_memset_device_ms``: the kernel
-   built without its ticket memset (the folding block resets the ticket),
-   bit-identical to the kernel;
+   kernel's registers, shared memory and spill bytes: ``flash_attention``
+   on layer 0's q/k/v of the full-width ``qwen3-0.6b`` forward -- the
+   tensor-core kernel (B 4 x S 4096, bf16, causal; also non-causal, and S
+   4000, not a multiple of the tile), the tensor-core kernel at
+   recurrentgemma-2b's layer shape on inputs from the seed (B 8 x H 10 (Hkv
+   1) x S 2048 x D 256, causal, with its registers, spill and shared bytes;
+   its rolled-heads fault rolls the batch rows), and the CUDA-core kernel
+   on the forward's inputs in f32 and in bf16 at a width the tensor cores
+   do not take (seeded B 8 x H 16 (Hkv 4) x S 2048 x D 96, causal) --, the
+   tensor-core kernel at D 160 and at D 256 on seeded inputs (B 1 x H 4
+   (Hkv 1) x S 256, causal) against an emulation of its arithmetic with and
+   without the split of P into two bf16 parts (it must lie far nearer the
+   split one), ``decode_attention`` on the serving path's layer-0 cache
+   after prefill (B 8, 2048 + 1 positions) and at ``decode_32k``'s length
+   (B 8, S 32 768, lengths from the seed); each held to one rounding of its
+   plain version's output (bf16, or the f32 kernel tests' limit), a limit
+   that must also reject faults planted on the same inputs (among them the
+   KV heads rolled by one); kernel, plain and
+   ``scaled_dot_product_attention`` times by events around eager calls, the
+   bound; for decode also two calls bit-identical, the schedule the kernel
+   wrote (chunk, items) against its Python mirror, ``device_ms`` and
+   ``library_device_ms`` (a CUDA graph of one call replayed after an L2
+   flush, median), the wrapper's host microseconds per call, and
+   ``no_memset_device_ms``: the kernel built without its ticket memset (the
+   folding block resets the ticket), bit-identical to the kernel;
 7. the LM main path, weights from the seed on the card: ``Model.forward``
    with ``attn_impl="pallas"`` at B 4 x S 4096 (28 tensor-core flash
    launches per forward) against ``attn_impl="blockwise"``, its
@@ -1264,17 +1265,22 @@ def seeded_flash_record(torch, F, FL, c: dict, seed: int, label: str):
     return rec
 
 
-#: the D 160 split check of phase 6: B 1 x H 4 (Hkv 1) x S 256, causal,
-#: seeded.  The kernel adds P V as (P rounded to bf16) V + (the rest of
-#: P, rounded to bf16) V; a kernel that dropped the second part would
-#: still pass the one-rounding limit at D 160 (bf16_p_err_over_limit
+#: phase 6's bf16 record of the CUDA-core kernel, at a width outside
+#: FL.MMA_D: B 8 x H 16 (Hkv 4) x S 2048 x D 96, causal, seeded
+CUDA_CORES_BF16 = dict(b=8, h=16, hkv=4, s=2048, d=96)
+
+#: the split checks of phase 6, by head width: B 1 x H 4 (Hkv 1) x S 256,
+#: causal, seeded.  The kernel adds P V as (P rounded to bf16) V + (the
+#: rest of P, rounded to bf16) V; a kernel that dropped the second part
+#: would still pass the one-rounding limit at D 160 (bf16_p_err_over_limit
 #: 0.79-0.96, PERF.md), so this check compares the kernel with the two
 #: emulations of its arithmetic: its mean distance to the split one must
 #: be below SPLIT_MARGIN of its distance to the one without the split.
 #: On the CPU the plain version (f32 P) sits at about 1/600 of that
 #: ratio (tests/test_torch_flash_mma.py), the emulation without the
-#: split at infinity.
-SPLIT_CHECK = dict(b=1, h=4, hkv=1, s=256, d=160)
+#: split at infinity.  D 256 takes the kernel's re-read Q fragments and
+#: its one-stage K/V schedule.
+SPLIT_CHECK = {d: dict(b=1, h=4, hkv=1, s=256, d=d) for d in (160, 256)}
 SPLIT_MARGIN = 0.1
 #: the emulation's tile and exp2 scale (flash_attention_mma.cuh)
 MMA_TILE, LOG2E = 64, 1.4426950408889634
@@ -1328,18 +1334,18 @@ def emulate_flash_mma(torch, q, k, v, causal: bool, split: bool = True):
     return out.bfloat16()
 
 
-def split_check(torch, FL, seed: int) -> dict:
-    """Phase 6: the tensor-core kernel at D 160 on seeded inputs
-    (:data:`SPLIT_CHECK`) against :func:`emulate_flash_mma` with and
-    without the split of P: the mean absolute distance and the share of
-    elements that differ, each way; fails unless the kernel lies within
+def split_check(torch, FL, seed: int, d: int) -> dict:
+    """Phase 6: the tensor-core kernel at head width ``d`` on seeded
+    inputs (:data:`SPLIT_CHECK`) against :func:`emulate_flash_mma` with
+    and without the split of P: the mean absolute distance and the share
+    of elements that differ, each way; fails unless the kernel lies within
     :data:`SPLIT_MARGIN` of its distance to the unsplit emulation."""
-    c = SPLIT_CHECK
-    g = torch.Generator(device="cuda").manual_seed(seed + 1160)
+    c = SPLIT_CHECK[d]
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000 + d)
     q, k, v = (torch.randn(c["b"], h, c["s"], c["d"], generator=g,
                            device="cuda").bfloat16()
                for h in (c["h"], c["hkv"], c["hkv"]))
-    check(FL.route(q.dtype, c["d"]) == "mma", "D 160 takes the tensor cores")
+    check(FL.route(q.dtype, d) == "mma", f"D {d} takes the tensor cores")
     got = FL.flash_attention(q, k, v, causal=True).float().cpu().reshape(
         c["b"] * c["h"], c["s"], c["d"])
     args = [t.cpu().reshape(-1, c["s"], c["d"]) for t in (q, k, v)]
@@ -1351,9 +1357,10 @@ def split_check(torch, FL, seed: int) -> dict:
         out[f"share_differing_{name}"] = float((diff > 0).float().mean())
     out["ratio"] = out["mean_abs_to_split"] / max(out["mean_abs_to_bf16_p"],
                                                   1e-30)
-    log(f"[kernel] flash_attention_mma D 160 split check {json.dumps(out)}")
+    log(f"[kernel] flash_attention_mma D {d} split check "
+        f"{json.dumps(out)}")
     check(out["mean_abs_to_bf16_p"] > 0 and out["ratio"] < SPLIT_MARGIN,
-          f"flash_attention_mma at D 160 is not clearly nearer the split "
+          f"flash_attention_mma at D {d} is not clearly nearer the split "
           f"emulation than the unsplit one: {json.dumps(out)}")
     return out
 
@@ -1505,17 +1512,23 @@ def lm_kernel_checks(torch, F, Model, serve_llm, FL, DA, cfg, params,
         torch, F, FL, *[t[:, :, :s2].contiguous() for t in (q, k, v)],
         True, f"flash_attention_mma[S={s2}]"))
     # the CUDA-core kernel, which the route keeps for f32 and for bf16 at
-    # the other widths: recurrentgemma-2b's layer (10 / 1 heads, D 256)
+    # the widths outside FL.MMA_D
     records.append(flash_record(
         torch, F, FL, *[t.float() for t in (q, k, v)], True,
         "flash_attention_cuda_cores[f32]", faults=True))
     del q, k, v, cap
+    records.append(seeded_flash_record(
+        torch, F, FL, CUDA_CORES_BF16, seed,
+        f"flash_attention_cuda_cores[bf16 D {CUDA_CORES_BF16['d']}]"))
+    # the tensor-core kernel at recurrentgemma-2b's layer (10 / 1 heads,
+    # D 256)
     c = LARGE_GROUPS["recurrentgemma-2b"]
     records.append(seeded_flash_record(
         torch, F, FL, dict(b=SERVE_BATCH, h=c["hkv"] * c["group"],
                            hkv=c["hkv"], s=SERVE_PROMPT, d=c["d"]),
-        seed, "flash_attention_cuda_cores[bf16 D 256, recurrentgemma-2b]"))
-    split_check(torch, FL, seed)
+        seed, "flash_attention_mma[bf16 D 256, recurrentgemma-2b]"))
+    for d in SPLIT_CHECK:
+        split_check(torch, FL, seed, d)
 
     with CaptureFirst(DA, "decode_attention") as cap:
         serve_llm.generate(LM_ARCH, reduced=False, batch=SERVE_BATCH,

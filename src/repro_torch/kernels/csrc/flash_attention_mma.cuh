@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas kernel flash_attention (src/repro/kernels/
 // flash_attention/kernel.py:73, pallas_call at :90) for bf16 inputs with a
-// head width of 64, 128 or 160.  The wrapper (kernels/flash_attention/
+// head width of 64, 128, 160 or 256.  The wrapper (kernels/flash_attention/
 // kernel.py, route()) sends every other dtype or width to the CUDA-core
 // kernel of flash_attention.cuh; the two compute the same function.
 //
@@ -15,11 +15,12 @@
 //
 // Bound on the H100: operations.  4 * S^2 * D flops per query head (half
 // under causal) on the bf16 tensor cores, against q/k/v/o read or written
-// once.  The design aims at that bound:
+// once (recurrentgemma-2b's layer, B 8 x H 10 x S 2048 x D 256, causal:
+// 0.174 ms at 989 TFLOP/s).  The design aims at that bound:
 //
 // * One block of 4 warps owns one (query head, 64-row Q tile); each warp
-//   owns 16 rows.  The warp loads its Q fragments into registers once
-//   (ldmatrix.x4) and walks the K/V tiles of 64 keys.
+//   owns 16 rows.  Up to D 160 the warp loads its Q fragments into
+//   registers once (ldmatrix.x4) and walks the K/V tiles of 64 keys.
 // * Both products run as mma.sync.m16n8k16 bf16 with f32 accumulators:
 //   S = Q K^T (K's B fragments by ldmatrix.x4 on the key rows) and
 //   O += P V (V's B fragments by ldmatrix.x4.trans).  P stays in
@@ -31,20 +32,37 @@
 //   own rounding, layers.py) misses the kernel-vs-plain limit on the LM
 //   path's non-causal layer-0 inputs (PERF.md).  The row sum l adds the
 //   f32 values.
-// * K/V tiles go through a ring of 2 stages in shared memory, filled with
-//   16-byte cp.async.cg copies; tile j+1 loads while tile j computes.
-//   Rows at or beyond S are zero-filled (src-size 0), so no thread reads
-//   past the tensor.  Every ldmatrix matrix reads one 16-byte chunk of 8
-//   consecutive rows, and its 8 row addresses fall on 8 distinct bank
-//   groups (16-byte units mod 128 bytes) by the row layout (fm_row):
-//   at D 64 and 128 a shared row is D * 2 bytes (8 or 16 chunks) and
-//   chunk c of row r sits at chunk c ^ (r % 8); at D 160 (20 chunks,
-//   where that XOR would reach chunks 16..23, past the row) a row is
-//   padded to 21 chunks (168 elements, 336 bytes), and since 21 is odd,
-//   8 consecutive rows at one chunk land on 8 distinct bank groups with
-//   no XOR.  Global memory keeps its [S, D] rows; only shared rows are
-//   padded.  kernels/flash_attention/kernel.py mirrors the layout
-//   (mma_smem_offset, mma_smem_bytes) for the CPU tests.
+// * Up to D 160, K/V tiles go through a ring of 2 stages in shared
+//   memory, filled with 16-byte cp.async.cg copies; tile j+1 loads while
+//   tile j computes.  Rows at or beyond S are zero-filled (src-size 0),
+//   so no thread reads past the tensor.  Every ldmatrix matrix reads one
+//   16-byte chunk of 8 consecutive rows, and its 8 row addresses fall on
+//   8 distinct bank groups (16-byte units mod 128 bytes) by the row
+//   layout (fm_row): at D 64, 128 and 256 a shared row is D * 2 bytes
+//   (8, 16 or 32 chunks) and chunk c of row r sits at chunk c ^ (r % 8);
+//   at D 160 (20 chunks, where that XOR would reach chunks 16..23, past
+//   the row) a row is padded to 21 chunks (168 elements, 336 bytes), and
+//   since 21 is odd, 8 consecutive rows at one chunk land on 8 distinct
+//   bank groups with no XOR.  Global memory keeps its [S, D] rows; only
+//   shared rows are padded.  kernels/flash_attention/kernel.py mirrors
+//   the layout (mma_smem_offset, mma_smem_bytes) for the CPU tests.
+// * D 256 (fm_plan<D>::wide, a compile-time split: the D 64, 128 and 160
+//   instantiations compile the code they always did).  Registers: a
+//   thread's O accumulator is 128 floats and its scores 32, so the 64
+//   registers of Q's 16 k16 fragments do not fit beside them under 255.
+//   Q K^T therefore walks k16 steps in its outer loop and re-reads each
+//   step's Q fragment (4 registers) from the shared Q tile by one
+//   ldmatrix.x4, then runs it against the tile's 4 key groups; each score
+//   still adds its k16 steps in the same order.  A lane's Q, K and V
+//   addresses are 4 registers a tile, one for each k16 step mod 4, plus
+//   immediates (fm_wide_lane): addressing each step through fm_swz left
+//   200 bytes of spill, this leaves 72 (255 registers; PERF.md).  Shared
+//   memory: a Q tile
+//   and one K and one V stage (3 x 32 KB, 98 304 bytes: two blocks an
+//   SM; a two-stage ring would take 163 840, one block).  V(j) lands
+//   while Q K(j)^T runs, K(j+1) while the softmax and P V(j) run; each
+//   stage is refilled only after a barrier that every warp passes once
+//   it has read the stage.
 // * The softmax runs in the exp2 domain: scale * log2(e) is one constant
 //   and every exponential is one ex2.approx.  Row max and row sum live in
 //   the quad of lanes that share a row (shfl_xor 1 and 2); l is summed
@@ -58,11 +76,12 @@
 //   row below S sees key 0; a row past S (the last tile's padding, never
 //   stored) sees the keys below S.
 //
-// Shared memory: Q 64 rows, then 2 stages of K and V 64 rows, all bf16
-// rows of fm_row<D>::stride elements: 40 KB at D 64, 80 KB at D 128 and
-// 105 KB (107,520 bytes) at D 160 (opt-in above 48 KB; two blocks fit an
-// SM at each).  The unit builds with --fmad=false; it has no
-// multiply-add outside the tensor cores.
+// Shared memory: Q 64 rows, then fm_plan<D>::stages stages of K and V 64
+// rows, all bf16 rows of fm_row<D>::stride elements: 40 KB at D 64, 80 KB
+// at D 128, 105 KB (107,520 bytes) at D 160 and 96 KB (98,304 bytes, one
+// stage) at D 256 (opt-in above 48 KB; two blocks fit an SM at each).
+// The unit builds with --fmad=false; it has no multiply-add outside the
+// tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,7 +100,7 @@ __device__ __forceinline__ uint32_t fm_smem_addr(const void* p) {
 
 // The shared row layout at head width D: a row of D / 8 16-byte chunks
 // XOR-swizzles them by row % 8 when that count is a multiple of 8 (D 64,
-// 128); otherwise it is padded to an odd number of chunks (D 160: 21)
+// 128, 256); otherwise it is padded to an odd number of chunks (D 160: 21)
 // and left unswizzled.
 template <int D>
 struct fm_row {
@@ -89,6 +108,31 @@ struct fm_row {
   static constexpr bool swizzle = chunks % 8 == 0;
   static constexpr int stride = (swizzle ? chunks : (chunks | 1)) * 8;
 };
+
+// The schedule at head width D.  Up to D 160: Q's fragments in registers
+// for the whole K walk, a ring of two K/V stages.  Wide (D 256): each Q
+// fragment re-read from shared memory in its k16 step of Q K^T, one K and
+// one V stage (the header note).
+template <int D>
+struct fm_plan {
+  static constexpr bool wide = D > 160;
+  static constexpr int stages = wide ? 1 : 2;
+};
+
+// A lane's ldmatrix byte addresses in a wide tile (D 256: 32 chunks a
+// row, swizzled).  The lane reads chunk 2 kc + c of row r, which sits at
+// chunk (2 kc + c) ^ (r % 8); c < 2 and r % 8 < 8 reach only the low 3
+// bits, so that is 8 (kc / 4) + ((2 (kc % 4)) ^ c ^ (r % 8)).  o[i] is
+// the address for kc % 4 == i; 128 (kc / 4) bytes is an immediate.
+template <int D>
+__device__ __forceinline__ void fm_wide_lane(uint32_t (&o)[4], uint32_t tile,
+                                             int row, int c) {
+  static_assert(fm_row<D>::swizzle, "wide tiles are swizzled");
+  const int y = c ^ (row & 7);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    o[i] = tile + row * (D * 2) + (((2 * i) ^ y) << 4);
+}
 
 // Element offset of (row, 16-byte chunk) in a shared [rows][D] tile.
 template <int D>
@@ -186,10 +230,12 @@ flare_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NO = D / 8;      // n8 tiles of O
   constexpr int NS = FM_BK / 8;  // n8 tiles of S
   constexpr int RS = fm_row<D>::stride;  // shared row stride (elements)
+  constexpr bool WIDE = fm_plan<D>::wide;
+  constexpr int NST = fm_plan<D>::stages;
   extern __shared__ __align__(128) unsigned char fm_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(fm_smem);
-  __nv_bfloat16* ks = qs + FM_BQ * RS;         // [2][64][RS]
-  __nv_bfloat16* vs = ks + 2 * FM_BK * RS;     // [2][64][RS]
+  __nv_bfloat16* ks = qs + FM_BQ * RS;         // [NST][64][RS]
+  __nv_bfloat16* vs = ks + NST * FM_BK * RS;   // [NST][64][RS]
 
   const int bh = blockIdx.y;
   const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
@@ -205,10 +251,20 @@ flare_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   fm_load_tile<D>(qs, q + (long long)bh * S * D, q0, S);
   fm_load_tile<D>(ks, kb, 0, S);
+  if constexpr (WIDE) fm_cp_commit();          // Q and K(0), then V(0)
   fm_load_tile<D>(vs, vb, 0, S);
   fm_cp_commit();
 
-  uint32_t qf[KS][4];
+  uint32_t qf[WIDE ? 1 : KS][4];
+  // wide: the lane's Q, K and V addresses by kc % 4 (fm_wide_lane)
+  [[maybe_unused]] uint32_t qo[4], ko[4], vo[4];
+  if constexpr (WIDE) {
+    fm_wide_lane<D>(qo, fm_smem_addr(qs), warp * 16 + (lane & 15),
+                    lane >> 4);
+    fm_wide_lane<D>(ko, fm_smem_addr(ks),
+                    (lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
+    fm_wide_lane<D>(vo, fm_smem_addr(vs), lane & 15, lane >> 4);
+  }
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -216,23 +272,28 @@ flare_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   float m_a = FM_NEG_INF, m_b = FM_NEG_INF, l_a = 0.f, l_b = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      const int nst = (j + 1) & 1;
-      fm_load_tile<D>(ks + nst * FM_BK * RS, kb, (j + 1) * FM_BK, S);
-      fm_load_tile<D>(vs + nst * FM_BK * RS, vb, (j + 1) * FM_BK, S);
-      fm_cp_commit();
-      fm_cp_wait<1>();
+    const int st = WIDE ? 0 : j & 1;
+    if constexpr (WIDE) {
+      fm_cp_wait<1>();                 // Q and K(j) landed; V(j) may not
+      __syncthreads();
     } else {
-      fm_cp_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
+      if (j + 1 < n_tiles) {
+        const int nst = (j + 1) & 1;
+        fm_load_tile<D>(ks + nst * FM_BK * RS, kb, (j + 1) * FM_BK, S);
+        fm_load_tile<D>(vs + nst * FM_BK * RS, vb, (j + 1) * FM_BK, S);
+        fm_cp_commit();
+        fm_cp_wait<1>();
+      } else {
+        fm_cp_wait<0>();
+      }
+      __syncthreads();
+      if (j == 0) {
 #pragma unroll
-      for (int kc = 0; kc < KS; ++kc) {
-        const int r = warp * 16 + (lane & 15);
-        fm_ldsm_x4(qf[kc],
-                   fm_smem_addr(qs + fm_swz<D>(r, 2 * kc + (lane >> 4))));
+        for (int kc = 0; kc < KS; ++kc) {
+          const int r = warp * 16 + (lane & 15);
+          fm_ldsm_x4(qf[kc],
+                     fm_smem_addr(qs + fm_swz<D>(r, 2 * kc + (lane >> 4))));
+        }
       }
     }
     const __nv_bfloat16* kt = ks + st * FM_BK * RS;
@@ -243,16 +304,36 @@ flare_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int np = 0; np < NS / 2; ++np) {
-      const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+    if constexpr (WIDE) {
+      // k16 steps outermost, each Q fragment re-read from shared memory
 #pragma unroll
       for (int kc = 0; kc < KS; ++kc) {
-        uint32_t b[4];
-        fm_ldsm_x4(b, fm_smem_addr(
-                          kt + fm_swz<D>(key, 2 * kc + ((lane >> 3) & 1))));
-        fm_mma(s[2 * np], qf[kc], b[0], b[1]);
-        fm_mma(s[2 * np + 1], qf[kc], b[2], b[3]);
+        fm_ldsm_x4(qf[0], qo[kc & 3] + 128 * (kc >> 2));
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t b[4];
+          fm_ldsm_x4(b, ko[kc & 3] + np * 16 * D * 2 + 128 * (kc >> 2));
+          fm_mma(s[2 * np], qf[0], b[0], b[1]);
+          fm_mma(s[2 * np + 1], qf[0], b[2], b[3]);
+        }
+      }
+      __syncthreads();                 // every warp is done with K(j)
+      if (j + 1 < n_tiles) {
+        fm_load_tile<D>(ks, kb, (j + 1) * FM_BK, S);
+        fm_cp_commit();
+      }
+    } else {
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+#pragma unroll
+        for (int kc = 0; kc < KS; ++kc) {
+          uint32_t b[4];
+          fm_ldsm_x4(b, fm_smem_addr(
+                            kt + fm_swz<D>(key, 2 * kc + ((lane >> 3) & 1))));
+          fm_mma(s[2 * np], qf[kc], b[0], b[1]);
+          fm_mma(s[2 * np + 1], qf[kc], b[2], b[3]);
+        }
       }
     }
 
@@ -305,6 +386,12 @@ flare_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       l_b += s[n][2] + s[n][3];
     }
 
+    if constexpr (WIDE) {
+      if (j + 1 < n_tiles) fm_cp_wait<1>();   // V(j); K(j+1) in flight
+      else fm_cp_wait<0>();
+      __syncthreads();
+    }
+
     // O += P V: P's A fragments straight from the S registers
 #pragma unroll
     for (int kk = 0; kk < FM_BK / 16; ++kk) {
@@ -322,8 +409,11 @@ flare_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int dn = 0; dn < KS; ++dn) {
         uint32_t b[4];
-        fm_ldsm_x4_t(b, fm_smem_addr(vt + fm_swz<D>(key, 2 * dn +
-                                                         (lane >> 4))));
+        if constexpr (WIDE)
+          fm_ldsm_x4_t(b, vo[dn & 3] + kk * 16 * D * 2 + 128 * (dn >> 2));
+        else
+          fm_ldsm_x4_t(b, fm_smem_addr(vt + fm_swz<D>(key, 2 * dn +
+                                                           (lane >> 4))));
         fm_mma(acc[2 * dn], pa, b[0], b[1]);
         fm_mma(acc[2 * dn + 1], pa, b[2], b[3]);
         fm_mma(acc[2 * dn], pr, b[0], b[1]);
@@ -331,6 +421,12 @@ flare_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     __syncthreads();   // stage st is refilled at the top of iteration j+1
+    if constexpr (WIDE) {
+      if (j + 1 < n_tiles) {           // V(j+1) lands during Q K(j+1)^T
+        fm_load_tile<D>(vs, vb, (j + 1) * FM_BK, S);
+        fm_cp_commit();
+      }
+    }
   }
 
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
@@ -353,8 +449,8 @@ flare_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 static size_t fm_smem_bytes() {
-  return (size_t)(FM_BQ + 4 * FM_BK) * fm_row<D>::stride *
-         sizeof(__nv_bfloat16);
+  return (size_t)(FM_BQ + 2 * fm_plan<D>::stages * FM_BK) *
+         fm_row<D>::stride * sizeof(__nv_bfloat16);
 }
 
 template <int D>
@@ -375,7 +471,7 @@ static int fm_launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// bf16 only; d is 64, 128 or 160.  bh query heads, bhkv KV heads.
+// bf16 only; d is 64, 128, 160 or 256.  bh query heads, bhkv KV heads.
 extern "C" int flare_flash_attention_mma(const void* q, const void* k,
                                          const void* v, void* o, int bh,
                                          int bhkv, int S, int d, int causal,
@@ -389,6 +485,8 @@ extern "C" int flare_flash_attention_mma(const void* q, const void* k,
     return fm_launch<128>(q, k, v, o, bh, S, group, causal, scale, s);
   if (d == 160)
     return fm_launch<160>(q, k, v, o, bh, S, group, causal, scale, s);
+  if (d == 256)
+    return fm_launch<256>(q, k, v, o, bh, S, group, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -407,6 +505,9 @@ extern "C" int flare_flash_attention_mma_attrs(int d, int* out) {
   } else if (d == 160) {
     e = cudaFuncGetAttributes(&a, flare_flash_mma_kernel<160>);
     dyn = fm_smem_bytes<160>();
+  } else if (d == 256) {
+    e = cudaFuncGetAttributes(&a, flare_flash_mma_kernel<256>);
+    dyn = fm_smem_bytes<256>();
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -5,12 +5,16 @@ Replaces the Pallas kernel ``flash_attention`` of
 ``ops.py``) with two CUDA kernels of the same function, chosen by
 :func:`route` from the dtype and the head width alone:
 
-* ``"mma"`` (``csrc/flash_attention_mma.cuh``): bf16 at D 64, 128 or
-  160, the widths of every bf16 config but recurrentgemma (256).  Both
-  products run on the tensor cores (``mma.sync`` m16n8k16 bf16, f32
-  accumulators; P split into bf16 high and low parts, so it keeps f32
-  grade) and K/V tiles stream through shared memory by ``cp.async``,
-  in the row layout that :func:`mma_smem_offset` mirrors;
+* ``"mma"`` (``csrc/flash_attention_mma.cuh``): bf16 at D 64, 128, 160
+  or 256, the widths of every bf16 config.  Both products run on the
+  tensor cores (``mma.sync`` m16n8k16 bf16, f32 accumulators; P split
+  into bf16 high and low parts, so it keeps f32 grade) and K/V tiles
+  stream through shared memory by ``cp.async``, in the row layout that
+  :func:`mma_smem_offset` mirrors.  Up to D 160 a warp holds its Q
+  fragments in registers and K/V go through two stages; at D 256 the
+  O accumulator alone takes 128 registers a thread, so each Q fragment
+  is re-read from shared memory in its k16 step and K and V have one
+  stage each (:func:`mma_stages`: 96 KB a block, two blocks an SM);
 * ``"cuda_cores"`` (``csrc/flash_attention.cuh``): f32, and bf16 at any
   other D in [16, 256]; the dots run in f32 on the CUDA cores.
 
@@ -22,7 +26,8 @@ registers.  Any ``S`` is taken (the last tiles are masked), and under
 TPU kernel's block sizes are not carried over.
 
 Bound on the H100: operations, ``4 * S^2 * D`` flops per query head (half
-under ``causal``) at the bf16 tensor-core rate.  The times, bounds and
+under ``causal``) at the bf16 tensor-core rate (recurrentgemma-2b's layer,
+B 8 x H 10 x S 2048 x D 256, causal: 0.174 ms).  The times, bounds and
 plain times of both kernels are in ``PERF.md``.
 """
 from __future__ import annotations
@@ -47,7 +52,7 @@ NEG_INF = -1e30
 #: The head widths the CUDA-core kernel takes, and those of the
 #: tensor-core kernel (bf16 only).
 MIN_D, MAX_D = 16, 256
-MMA_D = (64, 128, 160)
+MMA_D = (64, 128, 160, 256)
 #: The tensor-core kernel's tiles: Q rows a block, K/V rows a stage.
 MMA_BQ = MMA_BK = 64
 
@@ -85,11 +90,18 @@ def mma_smem_offset(d: int, row: int, chunk: int) -> int:
     return (row * chunks + chunk) * 8
 
 
+def mma_stages(d: int) -> int:
+    """Shared stages of K and of V in the tensor-core kernel at head width
+    ``d`` (``fm_plan<D>::stages``): a ring of 2 up to D 160, one at D 256,
+    where V(j) loads during Q K(j)^T and K(j+1) during P V(j)."""
+    return 1 if d > 160 else 2
+
+
 def mma_smem_bytes(d: int) -> int:
     """Dynamic shared bytes of a block of the tensor-core kernel
-    (``fm_smem_bytes<D>``): a Q tile and two stages of K and V tiles,
-    bf16 rows of :func:`mma_row_chunks` chunks."""
-    return (MMA_BQ + 4 * MMA_BK) * mma_row_chunks(d) * 16
+    (``fm_smem_bytes<D>``): a Q tile and :func:`mma_stages` stages of K
+    and V tiles, bf16 rows of :func:`mma_row_chunks` chunks."""
+    return (MMA_BQ + 2 * mma_stages(d) * MMA_BK) * mma_row_chunks(d) * 16
 
 
 def mma_resources() -> dict:

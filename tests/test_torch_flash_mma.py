@@ -41,7 +41,7 @@ TILE = 64
 LOG2E = 1.4426950408889634
 
 #: The kernel each config's attention takes on the card: bf16 at D 64,
-#: 128 or 160 goes to the tensor cores, other widths to the CUDA-core
+#: 128, 160 or 256 goes to the tensor cores, other widths to the CUDA-core
 #: kernel.
 CONFIG_ROUTE = {
     "qwen3_0_6b": (64, "mma"),
@@ -53,7 +53,7 @@ CONFIG_ROUTE = {
     "pixtral_12b": (160, "mma"),
     "dbrx_132b": (128, "mma"),
     "olmoe_1b_7b": (128, "mma"),
-    "recurrentgemma_2b": (256, "cuda_cores"),
+    "recurrentgemma_2b": (256, "mma"),
 }
 _TORCH = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
@@ -83,7 +83,7 @@ def test_route_of_the_ports_config():
 @pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 160, 256])
 def test_route_is_by_dtype_and_width_only(d):
     assert FL.route(torch.float32, d) == "cuda_cores"
-    assert FL.route(torch.bfloat16, d) == ("mma" if d in (64, 128, 160)
+    assert FL.route(torch.bfloat16, d) == ("mma" if d in (64, 128, 160, 256)
                                            else "cuda_cores")
 
 
@@ -183,7 +183,7 @@ def _gate_excess(got, want):
 
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 128, 160])
+@pytest.mark.parametrize("d", [64, 128, 160, 256])
 def test_emulated_kernel_matches_jax_and_the_plain_version(d, causal,
                                                            group):
     (jq, jk, jv), (tq, tk, tv) = _inputs(d + group + causal, 1, 2 * group,
@@ -210,13 +210,8 @@ def test_emulated_kernel_on_ragged_tiles(s, causal):
         assert torch.equal(got, tv.repeat_interleave(2, 1))
 
 
-@pytest.mark.parametrize("s", [1, 63, 65, 129])
-@pytest.mark.parametrize("causal", [True, False])
-def test_emulated_kernel_on_ragged_tiles_at_d160(s, causal):
-    """The same at pixtral's head width, 20 chunks a row: against the
-    plain version and the JAX package's kernel (Pallas, interpret
-    mode)."""
-    (jq, jk, jv), (tq, tk, tv) = _inputs(s + 160, 1, 4, 2, s, 160)
+def _ragged_against_plain_and_jax(s, causal, d):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(s + d, 1, 4, 2, s, d)
     got = _emulated(tq, tk, tv, causal)
     want = FL.flash_attention_plain(tq, tk, tv, causal=causal)
     assert _gate_excess(got, want) <= 1.0
@@ -226,6 +221,25 @@ def test_emulated_kernel_on_ragged_tiles_at_d160(s, causal):
                                rtol=FLASH_BF16_TOL, atol=FLASH_BF16_TOL)
     if s == 1:
         assert torch.equal(got, tv.repeat_interleave(2, 1))
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 129])
+@pytest.mark.parametrize("causal", [True, False])
+def test_emulated_kernel_on_ragged_tiles_at_d160(s, causal):
+    """The same at pixtral's head width, 20 chunks a row: against the
+    plain version and the JAX package's kernel (Pallas, interpret
+    mode)."""
+    _ragged_against_plain_and_jax(s, causal, 160)
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 129])
+@pytest.mark.parametrize("causal", [True, False])
+def test_emulated_kernel_on_ragged_tiles_at_d256(s, causal):
+    """The same at recurrentgemma-2b's head width, 32 chunks a row, where
+    the kernel re-reads Q from shared memory and holds one K and one V
+    stage: the arithmetic, and so the emulation, is that of every other
+    width."""
+    _ragged_against_plain_and_jax(s, causal, 256)
 
 
 def _ldmatrix_reads(d):
@@ -247,26 +261,28 @@ def _ldmatrix_reads(d):
                     2 * dn + (ln >> 4)) for ln in range(32)]
 
 
-@pytest.mark.parametrize("d", [64, 128, 160])
+@pytest.mark.parametrize("d", [64, 128, 160, 256])
 def test_shared_row_layout_has_a_slot_per_chunk_and_no_bank_conflict(d):
     """The mirror of ``fm_swz<D>``: a 64-row tile's (row, chunk) pairs
-    take distinct 16-byte slots inside the tile, the five tiles (Q, two
-    stages of K and V) fit ``mma_smem_bytes``, and each 8-lane matrix of
-    every ldmatrix read hits 8 distinct bank groups (16-byte units mod
-    128 bytes).  At D 64 and 128 it is the XOR swizzle the kernel has
-    had since it landed."""
+    take distinct 16-byte slots inside the tile, the tiles (Q, and two
+    stages of K and V up to D 160, one at D 256) fit ``mma_smem_bytes``,
+    and each 8-lane matrix of every ldmatrix read hits 8 distinct bank
+    groups (16-byte units mod 128 bytes).  At D 64 and 128 it is the XOR
+    swizzle the kernel has had since it landed; D 256 takes it too (32
+    chunks a row)."""
     chunks = d // 8
     row_bytes = FL.mma_row_chunks(d) * 16
     tile_bytes = TILE * row_bytes
     assert tile_bytes % 128 == 0          # every tile starts on bank 0
-    assert FL.mma_smem_bytes(d) == 5 * tile_bytes
+    assert FL.mma_stages(d) == (1 if d == 256 else 2)
+    assert FL.mma_smem_bytes(d) == (1 + 2 * FL.mma_stages(d)) * tile_bytes
     slots = {}
     for r in range(TILE):
         for c in range(chunks):
             off = FL.mma_smem_offset(d, r, c) * 2
             assert off % 16 == 0 and 0 <= off and off + 16 <= tile_bytes
             assert slots.setdefault(off // 16, (r, c)) == (r, c)
-            if d in (64, 128):
+            if d in (64, 128, 256):
                 assert FL.mma_smem_offset(d, r, c) == \
                     r * d + ((c ^ (r % 8)) << 3)
     assert len(slots) == TILE * chunks
@@ -282,13 +298,50 @@ def test_shared_row_layout_has_a_slot_per_chunk_and_no_bank_conflict(d):
     assert n_reads == 4 * (d // 16) * 3
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_split_p_lands_closer_to_f32_p_than_bf16_p(causal):
+def _wide_lane(row, c, i):
+    """The byte offset ``fm_wide_lane`` gives a lane for ``kc % 4 == i``
+    in a D 256 tile."""
+    return row * 512 + (((2 * i) ^ c ^ (row & 7)) << 4)
+
+
+def test_wide_lane_addresses_are_the_row_layout():
+    """At D 256 the kernel reads Q, K and V through per-lane offsets by
+    kc % 4 plus immediates (``fm_wide_lane``): each is the offset the
+    row layout gives the (row, chunk) that the D 64-160 code reads for
+    the same lane, k16 step and key group."""
+    d, ks = 256, 256 // 16
+    for ln in range(32):
+        for kc in range(ks):
+            # Q: rows warp * 16 + lane % 16, chunk 2 kc + lane / 16
+            for warp in range(4):
+                r = warp * 16 + (ln & 15)
+                assert _wide_lane(r, ln >> 4, kc & 3) + 128 * (kc >> 2) == \
+                    FL.mma_smem_offset(d, r, 2 * kc + (ln >> 4)) * 2
+            # K: key groups of 16 rows
+            for np_ in range(TILE // 16):
+                r0 = (ln & 7) + ((ln >> 4) << 3)
+                got = (_wide_lane(r0, (ln >> 3) & 1, kc & 3)
+                       + np_ * 16 * 512 + 128 * (kc >> 2))
+                assert got == FL.mma_smem_offset(
+                    d, np_ * 16 + r0, 2 * kc + ((ln >> 3) & 1)) * 2
+        # V (transposed): k16 steps of P V over the n8 pairs dn
+        for kk in range(TILE // 16):
+            for dn in range(ks):
+                got = (_wide_lane(ln & 15, ln >> 4, dn & 3)
+                       + kk * 16 * 512 + 128 * (dn >> 2))
+                assert got == FL.mma_smem_offset(
+                    d, kk * 16 + (ln & 15), 2 * dn + (ln >> 4)) * 2
+
+
+@pytest.mark.parametrize("causal,d", [(True, 64), (False, 64),
+                                      (True, 256), (False, 256)],
+                         ids=["True", "False", "True-d256", "False-d256"])
+def test_split_p_lands_closer_to_f32_p_than_bf16_p(causal, d):
     """The high + low split keeps P at f32 grade: on the same inputs its
     error against the f32-P plain version stays below that of P rounded
     to bf16 alone, the variant that misses the card gate on the LM path's
-    non-causal layer-0 inputs (PERF.md)."""
-    _, (tq, tk, tv) = _inputs(11, 1, 8, 2, 512, 64)
+    non-causal layer-0 inputs (PERF.md); at D 64 and at D 256."""
+    _, (tq, tk, tv) = _inputs(11, 1, 8, 2, 512, d)
     want = FL.flash_attention_plain(tq, tk, tv, causal=causal)
     split = _gate_excess(_emulated(tq, tk, tv, causal), want)
     bf16_p = _gate_excess(_emulated(tq, tk, tv, causal, split=False), want)

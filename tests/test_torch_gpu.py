@@ -152,10 +152,11 @@ def _randn(gen, shape, dtype, dev):
 
 
 #: (b, h, hkv, s, d): the first four since the CUDA-core kernel landed;
-#: then the tensor-core kernel's widths (64, 128, and pixtral's 160 with
-#: its padded shared rows) at S 64 (one tile), 97 and 1000 (ragged last
-#: tiles) and 300, each at GQA groups 1, 2 and 4.
-MMA_WIDTHS = (64, 128, 160)
+#: then the tensor-core kernel's widths (64, 128, pixtral's 160 with its
+#: padded shared rows, and recurrentgemma-2b's 256 with Q re-read from
+#: shared memory and one K and one V stage) at S 64 (one tile), 97 and
+#: 1000 (ragged last tiles) and 300, each at GQA groups 1, 2 and 4.
+MMA_WIDTHS = (64, 128, 160, 256)
 FLASH_SHAPES = [(1, 2, 1, 128, 64), (2, 4, 2, 200, 32), (1, 8, 2, 97, 128),
                 (2, 16, 8, 300, 64)] + [
     (2, 2 * g, 2, s, d) for d in MMA_WIDTHS for s in (64, 97, 300, 1000)
@@ -187,18 +188,20 @@ def test_flash_kernel_matches_plain(card, dtype, causal, b, h, hkv, s, d):
 def test_flash_mma_resources_match_the_layout_mirror(card):
     """The built tensor-core kernel's dynamic shared bytes at each width
     are the mirror's (``mma_smem_bytes``, which the CPU layout test
-    holds to the row layout); the D 160 build reports its registers and
-    spill bytes, and its shared bytes leave room for two blocks an SM."""
+    holds to the row layout); the D 160 and D 256 builds report their
+    registers and spill bytes, and their shared bytes leave room for two
+    blocks an SM."""
     res = FL.mma_resources()
     assert sorted(res) == list(MMA_WIDTHS)
     for d in MMA_WIDTHS:
         assert res[d]["dynamic_smem"] == FL.mma_smem_bytes(d)
-    r160 = res[160]
-    print(f"flash_attention_mma D 160: {r160}")
-    assert 0 < r160["registers"] <= 255 and r160["local_bytes"] >= 0
-    # sm_90: 228 KB of shared memory an SM, 1 KB of it reserved a block
-    assert 2 * (r160["dynamic_smem"] + r160["static_smem"] + 1024) \
-        <= 228 * 1024
+    for d in (160, 256):
+        r = res[d]
+        print(f"flash_attention_mma D {d}: {r}")
+        assert 0 < r["registers"] <= 255 and r["local_bytes"] >= 0
+        # sm_90: 228 KB of shared memory an SM, 1 KB of it reserved a block
+        assert 2 * (r["dynamic_smem"] + r["static_smem"] + 1024) \
+            <= 228 * 1024
 
 
 @pytest.mark.gpu
